@@ -1,0 +1,1 @@
+"""Small math ops and the wrappers of the hand-written CUDA kernels."""

@@ -1,0 +1,553 @@
+"""The port's four hand-written CUDA kernels: wrappers, plain versions, build.
+
+Each TPU kernel of the slice's main path (``msckf_tpu/ops/pallas_kernels.py``)
+has here
+
+* a wrapper with the JAX package's public name, which checks its inputs,
+  allocates the outputs with ``torch.empty``, launches the CUDA kernel from
+  ``msckf_tpu_torch/csrc/`` on PyTorch's current stream, raises if the launch
+  returns an error, and adds one to its launch count;
+* a plain PyTorch version (``*_plain``) that repeats the kernel's arithmetic.
+
+A wrapper takes the plain version only for tensors that lie on the CPU (the
+tests, and the CPU path of the filter). For CUDA tensors it launches the
+kernel or raises; there is no fallback.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library under ``msckf_tpu_torch/build/`` (one ``nvcc -c`` per source,
+all started together, then one link) and bound through ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("gating.cu", "verification.cu", "p15_recurrence.cu", "propagate_block.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# The verification kernel is built without multiply-add contraction, so it
+# rounds each product and sum as its plain version does and agrees with it
+# bitwise: its threshold decisions then cannot differ between the two.
+EXTRA_FLAGS = {"verification.cu": ("--fmad=false",)}
+
+# launches of each kernel, counted by its wrapper where it launches
+LAUNCHES = {
+    "batched_gating_gamma": 0,
+    "verification_scores": 0,
+    "p15_recurrence_fused": 0,
+    "propagate_block_fused": 0,
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+# --------------------------------------------------------------------------
+# build and bind
+# --------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _source_tag() -> str:
+    h = hashlib.sha256(repr((NVCC_FLAGS, sorted(EXTRA_FLAGS.items()))).encode())
+    for name in sorted(os.listdir(CSRC_DIR)):
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:12]
+
+
+def build_kernels() -> Path:
+    """Compile the kernel sources into one shared library (cached by the
+    sources' hash) and return its path. Raises on any compiler error."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib = BUILD_DIR / f"libmsckf_kernels_{_source_tag()}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{Path(src).stem}.{os.getpid()}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *EXTRA_FLAGS.get(src, ()), "-c", str(CSRC_DIR / src),
+             "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs, failed = [], []
+    for src, p in zip(SOURCES, procs):
+        out, _ = p.communicate()
+        logs.append(f"== {src}\n{out}")
+        if p.returncode != 0:
+            failed.append(src)
+    (BUILD_DIR / "build.log").write_text("\n".join(logs))
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    link = subprocess.run(
+        [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+         *map(str, objs), "-o", str(tmp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
+    return lib
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # S, r, gamma, U, n, stream
+    "msckf_gating": (_P, _P, _P, _I, _I, _P),
+    # R1, t1, kp1, kp2, consts(camR 9 | camt 3 | K 9 | Kinv 9), homo, epi, base, F, M, stream
+    "msckf_verification": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # P0, Phi, Qd, P, Phi_acc, sig, B, stream
+    "msckf_p15_recurrence": (_P, _P, _P, _P, _P, _P, _I, _P),
+    # R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc, g,
+    # P15, | R, p, v, last_ts, prop_count, P15, Phi_acc, outR, outp, outv,
+    # outsig, B, stream
+    "msckf_propagate_block": (_P,) * 25 + (_I, _P),
+}
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_kernels()))
+    for name, args in _SIGNATURES.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, name + suffix)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name: str, dtype: torch.dtype, *args) -> None:
+    suffix = "_f32" if dtype == torch.float32 else "_f64"
+    fn = getattr(_library(), name + suffix)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}{suffix} launch failed: cudaError {err}")
+
+
+def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _float_dtype(t: torch.Tensor) -> torch.dtype:
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"kernels take float32 or float64, got {t.dtype}")
+    return t.dtype
+
+
+# --------------------------------------------------------------------------
+# 1. chi-square gating statistic (replaces batched_gating_gamma,
+#    msckf_tpu/ops/pallas_kernels.py:276 -> _gating_kernel_blocked :103)
+# --------------------------------------------------------------------------
+
+GATING_NB = 8
+GATING_MAX_N = 64
+
+
+def batched_gating_gamma_plain(S: torch.Tensor, r: torch.Tensor, nb: int = GATING_NB):
+    """gamma_u = r_u^T S_u^{-1} r_u by right-looking Cholesky in panels of
+    ``nb`` columns with the forward substitution fused in. The pivot column
+    is read as the pivot ROW (the TPU kernel's choice); a non-positive pivot
+    makes gamma non-finite, which fails the gate."""
+    U, n, _ = S.shape
+    A = S
+    rr = r
+    row = torch.arange(n, device=S.device)[None, :]
+    zero = torch.zeros((), dtype=S.dtype, device=S.device)
+    gamma = torch.zeros(U, dtype=S.dtype, device=S.device)
+    for k0 in range(0, n, nb):
+        w = min(nb, n - k0)
+        panel = []
+        for j in range(w):
+            jj = k0 + j
+            rowj = A[:, jj, :]
+            for k in range(j):
+                rowj = rowj - panel[k] * panel[k][:, jj][:, None]
+            inv_sqrt_d = torch.rsqrt(rowj[:, jj])
+            lcol = torch.where(row >= jj, rowj * inv_sqrt_d[:, None], zero)
+            panel.append(lcol)
+            yj = rr[:, jj] * inv_sqrt_d
+            rr = rr - torch.where(row > jj, lcol, zero) * yj[:, None]
+            gamma = gamma + yj * yj
+        upd = panel[0][:, :, None] * panel[0][:, None, :]
+        for j in range(1, w):
+            upd = upd + panel[j][:, :, None] * panel[j][:, None, :]
+        A = A - upd
+    return gamma
+
+
+def batched_gating_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """S: (U, n, n) SPD systems (sigma^2-regularized), r: (U, n) -> (U,)."""
+    if S.device.type == "cpu":
+        return batched_gating_gamma_plain(S, r)
+    dt = _float_dtype(S)
+    U, n = S.shape[0], S.shape[-1]
+    if n > GATING_MAX_N:
+        raise ValueError(f"gating kernel takes n <= {GATING_MAX_N}, got {n}")
+    _check(S, "S", (U, n, n), dt, S.device)
+    _check(r, "r", (U, n), dt, S.device)
+    gamma = torch.empty(U, dtype=dt, device=S.device)
+    if U == 0:
+        return gamma
+    _launch("msckf_gating", dt, S.data_ptr(), r.data_ptr(), gamma.data_ptr(), U, n)
+    LAUNCHES["batched_gating_gamma"] += 1
+    return gamma
+
+
+# --------------------------------------------------------------------------
+# 2. verification scores (replaces verification_scores,
+#    msckf_tpu/ops/pallas_kernels.py:752 -> _verification_kernel :626)
+# --------------------------------------------------------------------------
+
+
+def _mm_pp_sc(Ap, B, transpose_a=False):
+    """plane-matrix @ scalar-matrix (row-major lists of 9)."""
+    out = []
+    for i in range(3):
+        for j in range(3):
+            acc = None
+            for k in range(3):
+                a = Ap[k * 3 + i] if transpose_a else Ap[i * 3 + k]
+                term = a * B[k][j]
+                acc = term if acc is None else acc + term
+            out.append(acc)
+    return out
+
+
+def _mm_sc_pp(A, Bp):
+    out = []
+    for i in range(3):
+        for j in range(3):
+            acc = None
+            for k in range(3):
+                term = Bp[k * 3 + j] * A[i][k]
+                acc = term if acc is None else acc + term
+            out.append(acc)
+    return out
+
+
+def _mm_pp_pp(Ap, Bp):
+    out = []
+    for i in range(3):
+        for j in range(3):
+            acc = None
+            for k in range(3):
+                term = Ap[i * 3 + k] * Bp[k * 3 + j]
+                acc = term if acc is None else acc + term
+            out.append(acc)
+    return out
+
+
+def _mv_pp(Ap, x):
+    return [Ap[i * 3 + 0] * x[0] + Ap[i * 3 + 1] * x[1] + Ap[i * 3 + 2] * x[2]
+            for i in range(3)]
+
+
+def verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv):
+    """(homography symmetric transfer error, signed epipolar residual,
+    baseline) per (track, observation) pair, element by element as the TPU
+    kernel computes them, with its 1e-30 guard on the projected z."""
+    F, M = t1.shape[0], t1.shape[1]
+    R1p = [R1[..., i, j] for i in range(3) for j in range(3)]
+    t1p = [t1[..., i] for i in range(3)]
+    kp1x, kp1y = kp1[..., 0], kp1[..., 1]
+    kp2x = kp2[:, None, 0].expand(F, M)
+    kp2y = kp2[:, None, 1].expand(F, M)
+    cR = [[camR[i, j] for j in range(3)] for i in range(3)]
+    ct = [camt[i] for i in range(3)]
+    Ks = [[K[i, j] for j in range(3)] for i in range(3)]
+    Ki = [[Kinv[i, j] for j in range(3)] for i in range(3)]
+    KiT = [[Ki[j][i] for j in range(3)] for i in range(3)]
+    one = torch.ones_like(kp1x)
+    tiny = torch.full_like(kp1x, 1e-30)
+
+    R12 = _mm_pp_sc(R1p, cR, transpose_a=True)
+    d = [ct[i] - t1p[i] for i in range(3)]
+    t12 = [R1p[0 * 3 + i] * d[0] + R1p[1 * 3 + i] * d[1] + R1p[2 * 3 + i] * d[2]
+           for i in range(3)]
+    base = torch.sqrt(t12[0] * t12[0] + t12[1] * t12[1] + t12[2] * t12[2])
+
+    H = _mm_pp_sc(_mm_sc_pp(Ks, R12), Ki)
+    R12T = [R12[j * 3 + i] for i in range(3) for j in range(3)]
+    Hinv = _mm_pp_sc(_mm_sc_pp(Ks, R12T), Ki)
+    x2h = [kp2x, kp2y, one]
+    x1h = [kp1x, kp1y, one]
+    x1p = _mv_pp(Hinv, x2h)
+    x2p = _mv_pp(H, x1h)
+    z1 = torch.where(x1p[2].abs() < 1e-30, tiny, x1p[2])
+    z2 = torch.where(x2p[2].abs() < 1e-30, tiny, x2p[2])
+    e1x = kp2x - x1p[0] / z1
+    e1y = kp2y - x1p[1] / z1
+    e2x = kp1x - x2p[0] / z2
+    e2y = kp1y - x2p[1] / z2
+    homo = 0.5 * (torch.sqrt(e1x * e1x + e1y * e1y) + torch.sqrt(e2x * e2x + e2y * e2y))
+
+    zero = torch.zeros_like(kp1x)
+    skew_t = [zero, -t12[2], t12[1], t12[2], zero, -t12[0], -t12[1], t12[0], zero]
+    Fm = _mm_pp_sc(_mm_sc_pp(KiT, _mm_pp_pp(skew_t, R12)), Ki)
+    Fx1 = _mv_pp(Fm, x1h)
+    epi = x2h[0] * Fx1[0] + x2h[1] * Fx1[1] + x2h[2] * Fx1[2]
+    return homo, epi, base
+
+
+def verification_scores(R1, t1, kp1, kp2, camR, camt, K, Kinv):
+    """R1 (F, M, 3, 3), t1 (F, M, 3), kp1 (F, M, 2), kp2 (F, 2), camR (3, 3),
+    camt (3,), K and Kinv (3, 3) -> homo, epi, base, each (F, M)."""
+    if t1.device.type == "cpu":
+        return verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv)
+    dt = _float_dtype(t1)
+    F, M = t1.shape[0], t1.shape[1]
+    dev = t1.device
+    _check(R1, "R1", (F, M, 3, 3), dt, dev)
+    _check(t1, "t1", (F, M, 3), dt, dev)
+    _check(kp1, "kp1", (F, M, 2), dt, dev)
+    _check(kp2, "kp2", (F, 2), dt, dev)
+    for name, x, shape in (("camR", camR, (3, 3)), ("camt", camt, (3,)),
+                           ("K", K, (3, 3)), ("Kinv", Kinv, (3, 3))):
+        if tuple(x.shape) != shape or x.dtype != dt or x.device != dev:
+            raise ValueError(f"{name}: expected {shape} {dt} on {dev}")
+    consts = torch.cat([camR.reshape(9), camt, K.reshape(9), Kinv.reshape(9)])
+    homo = torch.empty((F, M), dtype=dt, device=dev)
+    epi = torch.empty_like(homo)
+    base = torch.empty_like(homo)
+    if F * M == 0:
+        return homo, epi, base
+    _launch("msckf_verification", dt,
+            *(t.data_ptr() for t in (R1, t1, kp1, kp2, consts, homo, epi, base)), F, M)
+    LAUNCHES["verification_scores"] += 1
+    return homo, epi, base
+
+
+# --------------------------------------------------------------------------
+# 3. P15 recurrence (replaces p15_recurrence_fused,
+#    msckf_tpu/ops/pallas_kernels.py:970 -> _p15_recurrence_kernel :951)
+# --------------------------------------------------------------------------
+
+
+def p15_recurrence_fused_plain(P0, Phi, Qd):
+    """Over B ticks: P <- Phi_i P Phi_i^T + Qd_i, symmetrized;
+    Phi_acc <- Phi_i Phi_acc; per-tick diag(P)[0:3] and [12:15]."""
+    B = Phi.shape[0]
+    P = P0
+    Acc = torch.eye(15, dtype=P0.dtype, device=P0.device)
+    sig = []
+    for i in range(B):
+        P = Phi[i] @ P @ Phi[i].T + Qd[i]
+        P = 0.5 * (P + P.T)
+        Acc = Phi[i] @ Acc
+        dg = torch.diagonal(P)
+        sig.append(torch.cat([dg[0:3], dg[12:15]]))
+    return P, Acc, torch.stack(sig)
+
+
+def p15_recurrence_fused(P0, Phi, Qd):
+    """P0 (15, 15), Phi and Qd (B, 15, 15) -> P (15, 15), Phi_acc (15, 15),
+    sigma diagonals (B, 6)."""
+    if P0.device.type == "cpu":
+        return p15_recurrence_fused_plain(P0, Phi, Qd)
+    dt = _float_dtype(P0)
+    B = Phi.shape[0]
+    dev = P0.device
+    _check(P0, "P0", (15, 15), dt, dev)
+    _check(Phi, "Phi", (B, 15, 15), dt, dev)
+    _check(Qd, "Qd", (B, 15, 15), dt, dev)
+    P = torch.empty((15, 15), dtype=dt, device=dev)
+    acc = torch.empty_like(P)
+    sig = torch.empty((B, 6), dtype=dt, device=dev)
+    _launch("msckf_p15_recurrence", dt, P0.data_ptr(), Phi.data_ptr(), Qd.data_ptr(),
+            P.data_ptr(), acc.data_ptr(), sig.data_ptr(), B)
+    LAUNCHES["p15_recurrence_fused"] += 1
+    return P, acc, sig
+
+
+# --------------------------------------------------------------------------
+# 4. fused propagation block (replaces propagate_block_fused,
+#    msckf_tpu/ops/pallas_kernels.py:1216 -> _propagate_block_kernel :1020)
+# --------------------------------------------------------------------------
+
+
+def _skew3(w):
+    z = torch.zeros_like(w[0])
+    return torch.stack([
+        torch.stack([z, -w[2], w[1]]),
+        torch.stack([w[2], z, -w[0]]),
+        torch.stack([-w[1], w[0], z]),
+    ])
+
+
+def propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
+                                ts, gyro, acc, valid, qc, gravity, P15):
+    """B sequential OC-EKF ticks as the TPU kernel runs them: Rodrigues
+    nominal integration, F and the third-order Taylor Phi, the
+    observability-constrained fix-up (identity null state while
+    prop_count == 0), Q = (Phi G) diag(Qc) (Phi G)^T dt, the P15 and
+    Phi_acc recurrences, and masked commits on padding ticks."""
+    dt_ = R0.dtype
+    dev = R0.device
+    I3 = torch.eye(3, dtype=dt_, device=dev)
+    Z3 = torch.zeros((3, 3), dtype=dt_, device=dev)
+    Z3x15 = torch.zeros((3, 15), dtype=dt_, device=dev)
+    I15 = torch.eye(15, dtype=dt_, device=dev)
+    R, p, v, lts, pc = R0, p0, v0, last_ts, prop_count
+    Phi_acc = I15
+    outR, outp, outv, outsig = [], [], [], []
+    for i in range(ts.shape[0]):
+        t_i = ts[i]
+        g_i = gyro[i] - bg
+        a_i = acc[i] - ba
+        ok = valid[i]
+        dt = t_i - lts
+
+        first = pc == 0
+        R_null = torch.where(first, I3, R)
+        v_null = torch.where(first, torch.zeros_like(v), v)
+        p_null = torch.where(first, torch.zeros_like(p), p)
+
+        w_norm = torch.sqrt(torch.sum(g_i * g_i))
+        theta = w_norm * dt
+        axis = g_i / torch.where(w_norm < 1e-30, torch.ones_like(w_norm), w_norm)
+        Kx = _skew3(axis)
+        dR = I3 + torch.sin(theta) * Kx + (1.0 - torch.cos(theta)) * (Kx @ Kx)
+        dR = torch.where(theta > 0, dR, I3)
+        R_new = R @ dR
+        a_w = a_i @ R.T - gravity  # row form of R @ acc - g
+        p_new = p + v * dt + 0.5 * a_w * dt * dt
+        v_new = v + a_w * dt
+
+        F = torch.cat([
+            torch.cat([-_skew3(g_i), -I3, Z3, Z3, Z3], dim=1),
+            Z3x15,
+            torch.cat([-(R_new @ _skew3(a_i)), Z3, Z3, -R_new, Z3], dim=1),
+            Z3x15,
+            torch.cat([Z3, Z3, I3, Z3, Z3], dim=1),
+        ], dim=0)
+        Fdt = F * dt
+        Fdt2 = Fdt @ Fdt
+        Phi = I15 + Fdt + 0.5 * Fdt2 + (1.0 / 6.0) * (Fdt2 @ Fdt)
+
+        u_col = R_null @ gravity
+        u_row = gravity @ R_null.T
+        s_row = u_row / torch.sum(u_row * u_row)
+        A_vel = Phi[6:9, 0:3]
+        A_pos = Phi[12:15, 0:3]
+        w1 = _skew3(v_null - v_new) @ gravity
+        w2 = _skew3(dt * v_null + p_null - p_new) @ gravity
+        corr_vel = (A_vel @ u_col - w1)[:, None] * s_row[None, :]
+        corr_pos = (A_pos @ u_col - w2)[:, None] * s_row[None, :]
+        Phi = torch.cat([
+            torch.cat([R_new @ R_null.T, Phi[0:3, 3:]], dim=1),
+            Phi[3:6],
+            torch.cat([A_vel - corr_vel, Phi[6:9, 3:]], dim=1),
+            Phi[9:12],
+            torch.cat([A_pos - corr_pos, Phi[12:15, 3:]], dim=1),
+        ], dim=0)
+
+        PG = torch.cat(
+            [-Phi[:, 0:3], Phi[:, 3:6], -(Phi[:, 6:9] @ R_new), Phi[:, 9:12]], dim=1
+        )
+        Q = (PG * qc) @ PG.T * dt
+        P15_new = Phi @ P15 @ Phi.T + Q
+        P15_new = 0.5 * (P15_new + P15_new.T)
+        Phi_acc_new = Phi @ Phi_acc
+
+        R = torch.where(ok, R_new, R)
+        p = torch.where(ok, p_new, p)
+        v = torch.where(ok, v_new, v)
+        lts = torch.where(ok, t_i, lts)
+        pc = torch.where(ok, pc + 1, pc)
+        P15 = torch.where(ok, P15_new, P15)
+        Phi_acc = torch.where(ok, Phi_acc_new, Phi_acc)
+
+        outR.append(R)
+        outp.append(p)
+        outv.append(v)
+        dg = torch.diagonal(P15)
+        outsig.append(torch.cat([dg[0:3], dg[12:15]]))
+    return (R, p, v, lts, pc, P15, Phi_acc, torch.stack(outR), torch.stack(outp),
+            torch.stack(outv), torch.stack(outsig))
+
+
+def propagate_block_fused(R0, p0, v0, bg, ba, last_ts, prop_count,
+                          ts, gyro, acc, valid, qc, gravity, P15):
+    """One kernel for a block of B OC-EKF ticks.
+
+    Returns (R, p, v, last_ts, prop_count, P15, Phi_acc, per-tick R (B,3,3),
+    p (B,3), v (B,3), sigma diagonals (B,6)). ``prop_count`` is an int64
+    scalar tensor, ``valid`` a bool (B,) tensor."""
+    if R0.device.type == "cpu":
+        return propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
+                                           ts, gyro, acc, valid, qc, gravity, P15)
+    dt = _float_dtype(R0)
+    dev = R0.device
+    B = ts.shape[0]
+    for name, x, shape in (
+        ("R0", R0, (3, 3)), ("p0", p0, (3,)), ("v0", v0, (3,)), ("bg", bg, (3,)),
+        ("ba", ba, (3,)), ("last_ts", last_ts, ()), ("ts", ts, (B,)),
+        ("gyro", gyro, (B, 3)), ("acc", acc, (B, 3)), ("qc", qc, (12,)),
+        ("gravity", gravity, (3,)), ("P15", P15, (15, 15)),
+    ):
+        _check(x, name, shape, dt, dev)
+    _check(prop_count, "prop_count", (), torch.int64, dev)
+    _check(valid, "valid", (B,), torch.bool, dev)
+    R = torch.empty((3, 3), dtype=dt, device=dev)
+    p = torch.empty(3, dtype=dt, device=dev)
+    v = torch.empty(3, dtype=dt, device=dev)
+    lts = torch.empty((), dtype=dt, device=dev)
+    pc = torch.empty((), dtype=torch.int64, device=dev)
+    P15_out = torch.empty((15, 15), dtype=dt, device=dev)
+    acc_out = torch.empty((15, 15), dtype=dt, device=dev)
+    outR = torch.empty((B, 3, 3), dtype=dt, device=dev)
+    outp = torch.empty((B, 3), dtype=dt, device=dev)
+    outv = torch.empty((B, 3), dtype=dt, device=dev)
+    outsig = torch.empty((B, 6), dtype=dt, device=dev)
+    _launch(
+        "msckf_propagate_block", dt,
+        *(t.data_ptr() for t in (R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc,
+                                 valid, qc, gravity, P15, R, p, v, lts, pc, P15_out,
+                                 acc_out, outR, outp, outv, outsig)),
+        B,
+    )
+    LAUNCHES["propagate_block_fused"] += 1
+    return R, p, v, lts, pc, P15_out, acc_out, outR, outp, outv, outsig

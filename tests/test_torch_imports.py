@@ -1,0 +1,130 @@
+"""Import and device rules of the PyTorch port.
+
+* ``import msckf_tpu_torch`` loads neither jax nor flax, and no file of the
+  port or chip_smoke.py imports jax, flax or the JAX package;
+* entry points run on CUDA unless the caller passes ``device="cpu"``, and
+  raise without a GPU instead of carrying on on the CPU;
+* the configurations the port does not take raise NotImplementedError;
+* chip_smoke.py refuses to run without a GPU or without the package.
+"""
+
+import ast
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import msckf_tpu_torch as mt
+from msckf_tpu_torch.data.stream import build_stream, to_device
+from msckf_tpu_torch.data.synthetic import generate_circle_sequence
+from msckf_tpu_torch.filter.msckf import frame_step
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "msckf_tpu")
+
+
+def test_import_leaves_jax_and_flax_out():
+    code = (
+        "import sys, msckf_tpu_torch, msckf_tpu_torch.filter.msckf, "
+        "msckf_tpu_torch.ops.kernels, msckf_tpu_torch.data.stream; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msckf_tpu')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _port_files():
+    files = sorted((REPO / "msckf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    return files
+
+
+def test_no_file_imports_jax_or_the_jax_package():
+    offenders = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                if name.split(".")[0] in FORBIDDEN:
+                    offenders.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
+    assert not offenders, offenders
+
+
+@pytest.fixture(scope="module")
+def small():
+    cfg = mt.reference_experiment_config(
+        dtype="float64", f_max=64, u_max=8, k_max=64, m_max=8, n_cam_slots=8,
+        max_camera_states=6, desc_dim=10, use_pallas_triage=False,
+    )
+    seq = generate_circle_sequence(rng=np.random.default_rng(0), n_world_points=60)
+    st = build_stream(cfg, seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
+                      seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores, max_ticks=60)
+    return cfg, st
+
+
+def test_entry_points_raise_without_gpu(monkeypatch, small):
+    cfg, st = small
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.make_initial_state(cfg, st.R_init)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_device(st, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.init_state(cfg)
+    std = to_device(st, cfg, device="cpu")
+    state = mt.make_initial_state(cfg, st.R_init, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.run_sequence(cfg, state, std.prefix, std.frames)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.state_from_numpy(mt.state_to_numpy(state))
+    final, _, _ = mt.run_sequence(cfg, state, std.prefix, std.frames, device="cpu")
+    assert final.P.device.type == "cpu"
+
+
+@pytest.mark.parametrize("overrides", [
+    {"use_pallas_triage": True},
+    {"update_kernel": "fused"},
+    {"gating_solver": "ns"},
+    {"gain_solver": "chol"},
+    {"correction_dtype": "compensated"},
+    {"triangulation": "gn"},
+    {"prune_path": "masked"},
+    {"use_pallas": False},
+])
+def test_unported_configurations_raise(small, overrides):
+    cfg, st = small
+    bad = mt.reference_experiment_config(**{
+        **{f: getattr(cfg, f) for f in ("dtype", "f_max", "u_max", "k_max", "m_max",
+                                         "n_cam_slots", "max_camera_states", "desc_dim",
+                                         "use_pallas_triage")},
+        **overrides,
+    })
+    std = to_device(st, bad, device="cpu")
+    state = mt.make_initial_state(bad, st.R_init, device="cpu")
+    frame = {k: v[0] for k, v in std.frames.items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        frame_step(bad, state, frame, assume_camera=True)
+
+
+def test_chip_smoke_refuses_without_gpu_or_package(tmp_path):
+    """No CUDA here: the script exits non-zero and prints no result line,
+    both from the repository and alone in an empty directory."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", lone)
+    for script, cwd in ((REPO / "chip_smoke.py", REPO), (lone, tmp_path)):
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                             text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,181 @@
+"""The port's plain kernel versions (msckf_tpu_torch/ops/kernels.py) against
+the JAX package's Pallas kernels in interpret mode, on the CPU in float64.
+
+Each plain version repeats its TPU kernel's arithmetic, so the two agree to
+round-off: rtol 1e-10 (an absolute floor of 1e-10 times the output's scale
+covers entries at or near zero, such as the signed epipolar residual and
+the structural zeros of Phi_acc). The CUDA kernels themselves are held
+against these plain versions on the card by chip_smoke.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+from scipy.spatial.transform import Rotation
+
+import jax.numpy as jnp
+
+from msckf_tpu.ops import pallas_kernels as pk
+from msckf_tpu_torch.ops import kernels as K
+
+RTOL = 1e-10
+
+
+def _close(got, want, rtol=RTOL, floor=True):
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    scale = np.abs(want[np.isfinite(want)]).max() if np.isfinite(want).any() else 0.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * scale if floor else 0.0)
+
+
+def _t(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+def _spd(rng, U, n, k=None):
+    """sigma^2-regularized SPD systems with k live rows (the rest padding)."""
+    k = n if k is None else k
+    S = np.zeros((U, n, n))
+    A = rng.normal(size=(U, k, 2 * k)) * 0.3
+    S[:, :k, :k] = A @ A.transpose(0, 2, 1)
+    S += 0.01 * np.eye(n)
+    r = np.zeros((U, n))
+    r[:, :k] = rng.normal(size=(U, k))
+    return S, r
+
+
+@pytest.mark.parametrize("U,n,k", [(16, 16, 16), (8, 24, 10), (5, 16, 6)])
+def test_gating_plain_matches_pallas(U, n, k):
+    rng = np.random.default_rng(U * 100 + n)
+    S, r = _spd(rng, U, n, k)
+    want = np.asarray(pk.batched_gating_gamma(jnp.asarray(S), jnp.asarray(r), interpret=True))
+    got = K.batched_gating_gamma(_t(S), _t(r)).numpy()
+    _close(got, want, floor=False)
+
+
+def test_gating_plain_nonpositive_pivot_fails_gate():
+    """A non-positive pivot makes gamma non-finite in both, and the gate
+    ``gamma <= crit`` fails there; the other systems are unaffected."""
+    rng = np.random.default_rng(3)
+    S, r = _spd(rng, 6, 16)
+    S[2, 5, 5] = -1.0  # negative pivot
+    S[4] = 0.0  # zero pivot at column 0
+    want = np.asarray(pk.batched_gating_gamma(jnp.asarray(S), jnp.asarray(r), interpret=True))
+    got = K.batched_gating_gamma(_t(S), _t(r)).numpy()
+    bad = np.zeros(6, bool)
+    bad[[2, 4]] = True
+    assert not np.isfinite(got[bad]).any() and not np.isfinite(want[bad]).any()
+    crit = np.full(6, 30.0)
+    np.testing.assert_array_equal(got <= crit, want <= crit)
+    assert not (got[bad] <= crit[bad]).any()
+    _close(got[~bad], want[~bad], floor=False)
+
+
+def test_gating_plain_reads_the_pivot_row():
+    """S that is not bitwise symmetric: the plain version factors the rows,
+    as the TPU kernel does, and stays within round-off of the Cholesky
+    solve of the symmetrized matrix."""
+    rng = np.random.default_rng(5)
+    S, r = _spd(rng, 4, 16)
+    S = S + np.triu(rng.normal(size=(4, 16, 16)) * 1e-9, 1)
+    want = np.asarray(pk.batched_gating_gamma(jnp.asarray(S), jnp.asarray(r), interpret=True))
+    got = K.batched_gating_gamma(_t(S), _t(r)).numpy()
+    _close(got, want, floor=False)
+
+
+def _verification_inputs(rng, F, M, spread):
+    camR = Rotation.random(1, random_state=int(rng.integers(1 << 16))).as_matrix()[0]
+    camt = rng.normal(size=3)
+    R1 = camR[None] @ Rotation.from_rotvec(rng.normal(size=(F * M, 3)) * spread).as_matrix()
+    t1 = camt + rng.normal(size=(F * M, 3)) * np.where(rng.random((F * M, 1)) < 0.3, 0.003, 0.5)
+    kp1 = rng.uniform(0, 640, size=(F, M, 2))
+    kp2 = rng.uniform(0, 640, size=(F, 2))
+    K_ = np.array([[180.0, 0, 320], [0, 180, 240], [0, 0, 1]])
+    return (R1.reshape(F, M, 3, 3), t1.reshape(F, M, 3), kp1, kp2, camR, camt, K_,
+            np.linalg.inv(K_))
+
+
+@pytest.mark.parametrize("F,M,spread", [(16, 8, 0.2), (32, 16, 0.2), (8, 4, 3.0)])
+def test_verification_plain_matches_pallas(F, M, spread):
+    rng = np.random.default_rng(F + M)
+    args = _verification_inputs(rng, F, M, spread)
+    want = pk.verification_scores(*map(jnp.asarray, args), interpret=True)
+    got = K.verification_scores(*map(_t, args))
+    for name, g, w in zip(("homo", "epi", "base"), got, want):
+        _close(g.numpy(), np.asarray(w), floor=name == "epi")
+
+
+def test_verification_plain_keeps_the_z_guard():
+    """A projection at z == 0 is guarded (1e-30), as in the TPU kernel: the
+    scores stay finite and equal to the Pallas kernel's."""
+    rng = np.random.default_rng(9)
+    R1, t1, kp1, kp2, _, camt, _, _ = _verification_inputs(rng, 4, 4, 0.2)
+    # with K = I and camR = I, H = R12 = R1^T exactly; this R1 sends
+    # x1 = (0, v, 1) and x2 = (0, v', 1) to z = 0 in both directions
+    camR = np.eye(3)
+    K_ = np.eye(3)
+    R1[0, 0] = [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]
+    kp1[0, 0] = [0.0, 5.0]
+    kp2[0] = [0.0, 7.0]
+    args = (R1, t1, kp1, kp2, camR, camt, K_, K_)
+    want = pk.verification_scores(*map(jnp.asarray, args), interpret=True)
+    got = K.verification_scores(*map(_t, args))
+    for name, g, w in zip(("homo", "epi", "base"), got, want):
+        assert np.isfinite(g.numpy()).all()
+        _close(g.numpy(), np.asarray(w), floor=name == "epi")
+
+
+@pytest.mark.parametrize("B", [1, 2, 9])
+def test_p15_plain_matches_pallas(B):
+    rng = np.random.default_rng(B)
+    L = rng.normal(size=(15, 15)) * 0.01
+    P0 = L @ L.T
+    Phi = np.eye(15) + rng.normal(size=(B, 15, 15)) * 0.05
+    Lq = rng.normal(size=(B, 15, 15)) * 1e-3
+    Qd = Lq @ Lq.transpose(0, 2, 1)
+    want = pk.p15_recurrence_fused(jnp.asarray(P0), jnp.asarray(Phi), jnp.asarray(Qd),
+                                   interpret=True)
+    got = K.p15_recurrence_fused(_t(P0), _t(Phi), _t(Qd))
+    for g, w in zip(got, want):
+        _close(g.numpy(), np.asarray(w))
+
+
+def _prop_inputs(rng, B, prop_count, pad):
+    ts = 1.0 + 0.005 * np.arange(1, B + 1)
+    valid = np.ones(B, bool)
+    if pad:
+        valid[-pad:] = False
+        ts[-pad:] = 0.0
+    L = rng.normal(size=(15, 15)) * 0.01
+    qc = np.repeat([1e-8, 1e-12, 1e-6, 1e-10], 3)
+    return dict(
+        R0=Rotation.random(1, random_state=int(rng.integers(1 << 16))).as_matrix()[0],
+        p0=rng.normal(size=3), v0=rng.normal(size=3),
+        bg=rng.normal(size=3) * 0.01, ba=rng.normal(size=3) * 0.01,
+        last_ts=np.float64(1.0), prop_count=prop_count,
+        ts=ts, gyro=rng.normal(size=(B, 3)) * 0.2,
+        acc=rng.normal(size=(B, 3)) + np.array([0, 0, 9.8]), valid=valid,
+        qc=qc, gravity=np.array([0.0, 0.0, -9.81]), P15=L @ L.T,
+    )
+
+
+@pytest.mark.parametrize(
+    "B,prop_count,pad",
+    [(1, 10, 0), (2, 10, 1), (9, 10, 2), (1, 0, 0), (9, 0, 0)],
+    ids=["B1", "B2-padding-tick", "B9-padding", "B1-first-step", "B9-first-step"],
+)
+def test_propagate_block_plain_matches_pallas(B, prop_count, pad):
+    rng = np.random.default_rng(B * 10 + prop_count + pad)
+    a = _prop_inputs(rng, B, prop_count, pad)
+    jargs = [jnp.asarray(v) for v in a.values()]
+    jargs[6] = jnp.asarray(prop_count, jnp.int32)
+    (R, pv, meta, P15, acc, oR, op, ov, osig) = pk.propagate_block_fused(*jargs, interpret=True)
+    targs = {k: _t(v) for k, v in a.items()}
+    targs["prop_count"] = torch.tensor(prop_count, dtype=torch.int64)
+    got = K.propagate_block_fused(*targs.values())
+    (gR, gp, gv, glts, gpc, gP15, gacc, goR, gop, gov, gosig) = got
+    for g, w in ((gR, R), (gp, pv[0]), (gv, pv[1]), (gP15, P15), (gacc, acc),
+                 (goR, oR), (gop, op), (gov, ov), (gosig, osig)):
+        _close(g.numpy(), np.asarray(w))
+    assert float(glts) == float(meta[0, 0])
+    assert int(gpc) == int(meta[0, 1]) == prop_count + B - pad
