@@ -7,18 +7,31 @@
 Phases (each one raises, and the script exits non-zero, on any failure):
 
 1. device   — card name and power limit, torch and CUDA versions; builds the
-              four CUDA kernels into msckf_tpu_torch/build/ and times it.
+              six CUDA kernels into msckf_tpu_torch/build/ and times it.
 2. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes, in float32 and float64, on seeded
-              inputs: equal gate/verification decisions, floats within the
-              stated tolerances; CUDA-event times of kernel, plain version
-              and (gating) a library yardstick; the bound for each.
-3. parity   — the test configuration (float64, 600 ticks of the circle) on
-              the card and on the CPU: equal counters, matching trajectories.
-4. main     — the slice configuration, float32 filter with a float64
-              correction island at the reference capacities, over the whole
+              inputs: equal gate/verification/triage decisions, floats
+              within the stated tolerances; CUDA-event times of kernel,
+              plain version and (gating) a library yardstick; the bound for
+              each.
+3. parity   — the test capacities in float64, 600 ticks of the circle, on
+              the card and on the CPU, in the default configuration, with
+              update_kernel="fused" and with the plain triage
+              (use_pallas_triage=False): equal counters and per-tick counts,
+              matching trajectories.
+4. main     — the default configuration (float32 filter, float64
+              correction island, triage kernel, hybrid update with the
+              gating kernel) at the reference capacities over the whole
               circle: error < 0.2 m, no overflow, every kernel launched as
-              often as the frame loop predicts; frames/s and host syncs.
+              often as the frame loop predicts; host syncs, and a profile.
+5. fused    — the same with update_kernel="fused": error, overflow,
+              launches and host syncs.
+6. plain    — the same with the plain triage (use_pallas_triage=False):
+              error, overflow, launches and host syncs.
+   Then frames/s of each configuration driven above, 3 runs each: the
+   driven run, then two more in turns.
+7. xla      — a short run with update_kernel="xla" (the batched-Cholesky
+              gate): launches, and no synchronizing call beyond the loop's.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -40,18 +53,34 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and FLOP/s
-# outside the tensor cores for each type
+# outside the tensor cores for each type; for matmul-shaped work float64
+# also runs on the tensor cores (DMMA), at 67 TFLOP/s, while float32 there
+# would be TF32, which does not keep float32's precision
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS_MATMUL = {"float32": 67e12, "float64": 67e12}
 
 # operations each kernel does, counted from its source (see the .cu files)
 VERIFICATION_FLOPS_PER_PAIR = 452
 P15_FLOPS_PER_TICK = 3 * 2 * 15**3 + 3 * 15 * 15  # three 15^3 products, + Qd, symmetrize
 PROPAGATE_FLOPS_PER_TICK = 44_625
+TRIAGE_FLOPS_PER_OBS = 50  # norm 6, 3 divisions, X 24, b.d 5, y 12
+TRIAGE_FLOPS_PER_TRACK = 122  # the 3x3 solve, the anchor frame, projection, refresh
+
+
+def update_terms_flops(U: int, R2: int, D: int) -> float:
+    """Operations the function needs for one update_terms_fused call, from
+    update_terms.cu: per track the Gram and Hf^T r sums, Hf^T H,
+    C = W Hf^T H, H~ = H - Hf C, H~ P, the symmetric S (R2 (R2 + 1) / 2 dot
+    products of length D) and the Cholesky with its substitution; then the
+    symmetric A (D (D + 1) / 2 dot products over all U * R2 rows) and c."""
+    per_track = (9 * 2 * R2 + 3 * 2 * R2 * D + 15 * D + 6 * R2 * D
+                 + 2 * R2 * D * D + D * R2 * (R2 + 1) + R2**3 / 3 + 2 * R2**2)
+    return U * per_track + U * R2 * D * (D + 1) + 2 * U * R2 * D
 
 TOL = {"float32": 1e-4, "float64": 1e-10}
 
-PHASES = ("device", "kernels", "parity", "main")
+PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla")
 DEVICE = "cuda"
 
 
@@ -99,9 +128,10 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_only_ms(torch, fn, match: str, reps: int = 20):
+def kernel_only_ms(torch, fn, match, reps: int = 20):
     """Mean device time per call of the CUDA kernels whose name contains
-    ``match``, from torch.profiler; None when it records no device time."""
+    ``match`` (a string, or a tuple of strings for a call of several
+    kernels), from torch.profiler; None when it records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -110,8 +140,10 @@ def kernel_only_ms(torch, fn, match: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    matches = (match,) if isinstance(match, str) else match
     total_us = sum(
-        getattr(e, "device_time_total", 0.0) for e in prof.key_averages() if match in e.key
+        getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
+        if any(m in e.key for m in matches)
     )
     return total_us / reps / 1e3 if total_us > 0 else None
 
@@ -150,9 +182,9 @@ def _per_output(errs: dict) -> str:
         f"{k} {a:.2e}/{r:.2e}" for k, (a, r) in errs.items())
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
+def bound_ms(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = flops / PEAK_FLOPS[dtype]
+    t_ops = flops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -238,20 +270,74 @@ def kernel_inputs(torch, dtype, rng, cfg):
 
     propagate = prop_inputs(1, 10, 0)
     propagate_checks = [prop_inputs(1, 0, 0), prop_inputs(2, 5, 1)]
-    return gating, verification, p15, propagate, propagate_checks
+
+    # triage: each track's point seen along noisy lines from its n_obs
+    # camera centres (the first the anchor, rotated little, so that most
+    # points project into the image); unused observation slots zero, as in
+    # the track store. Track 1 lies behind its anchor, track 2 outside the
+    # image, track 3 has all weights zero.
+    t_a = rng.normal(size=(F, 3))
+    R_a = _rotations(rng, F, 0.1)
+    Ci = np.concatenate([rng.uniform(-1.0, 1.0, (F, 2)), rng.uniform(3.0, 8.0, (F, 1))], 1)
+    Ci[1] = [0.1, 0.1, -5.0]
+    Ci[2] = [15.0, 0.0, 5.0]
+    wp = t_a + np.einsum("fij,fj->fi", R_a, Ci)
+    live = np.arange(M)[None, :] < rng.integers(2, M + 1, F)[:, None]
+    bases = t_a[:, None, :] + rng.normal(size=(F, M, 3))
+    bases[:, 0] = t_a
+    dirs = wp[:, None, :] - bases + rng.normal(size=(F, M, 3)) * 0.01
+    bases[~live] = 0.0
+    dirs[~live] = 0.0
+    weights = np.where(live, rng.uniform(0.5, 1.0, (F, M)), 0.0)
+    weights[3] = 0.0
+    triage = (t(bases), t(dirs), t(weights), t(R_a), t(t_a), t(cfg.K_np), t(cfg.K_inv_np))
+
+    # update terms at U = u_max, 2M = 64 over the camera span, D = 6N = 192,
+    # as the filter calls it: each observation's two rows in one 6-column
+    # camera block; the last 8 tracks are padding (sel_ok False, zero rows); residuals of a random
+    # scale per track, so that some tracks fail their chi-square threshold;
+    # track 2's threshold is NaN; track 5 observes only the last camera
+    # slot, whose block of P is -I, so that its S is not positive definite.
+    N = cfg.n_cam_slots
+    D = 6 * N
+    H = np.zeros((U, n, D))
+    Hf = np.zeros((U, n, 3))
+    ru = np.zeros((U, n))
+    n_obs = rng.integers(2, M + 1, U)
+    n_obs[U - 8:] = 0
+    for u in range(U):
+        k = int(n_obs[u])
+        slots = np.full(k, N - 1) if u == 5 else rng.integers(0, N - 1, k)
+        for m_, c_ in enumerate(slots):
+            H[u, 2 * m_:2 * m_ + 2, 6 * c_:6 * c_ + 6] = rng.normal(size=(2, 6))
+        Hf[u, :2 * k] = rng.normal(size=(2 * k, 3))
+        ru[u, :2 * k] = rng.normal(size=2 * k) * cfg.sigma_image * rng.uniform(0.5, 2.0)
+    Lp = rng.normal(size=(D, D)) * (0.003 / np.sqrt(D))
+    P = Lp @ Lp.T + 1e-5 * np.eye(D)
+    last = slice(6 * (N - 1), D)
+    P[last, :] = 0.0
+    P[:, last] = 0.0
+    P[last, last] = -np.eye(6)
+    dof_u = np.clip(2 * n_obs - 3, 0, n)
+    crit_u = np.where(dof_u > 0, chi2.ppf(0.95, np.maximum(dof_u, 1)), np.nan)
+    crit_u[2] = np.nan
+    update = (t(H), t(Hf), t(ru), t(P), t(crit_u),
+              torch.as_tensor(np.arange(U) < U - 8, device=dev))
+    return gating, verification, p15, propagate, propagate_checks, triage, update
 
 
 def phase_kernels(torch, K, cfg, rng):
     """Kernel vs plain version on the card, both dtypes. Returns the float32
     rows for the kernels line, keyed by kernel name."""
+    from msckf_tpu_torch.ops.smallmat import default_rcond
+
     rows = {}
     for dtype_name in ("float32", "float64"):
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
         sz = torch.finfo(dtype).bits // 8
-        gating, verification, p15, propagate, propagate_checks = kernel_inputs(
-            torch, dtype, rng, cfg
-        )
+        (gating, verification, p15, propagate, propagate_checks, triage,
+         update) = kernel_inputs(torch, dtype, rng, cfg)
         log(f"-- kernels, {dtype_name} (tolerance rtol {tol})")
 
         # 1. gating
@@ -359,6 +445,76 @@ def phase_kernels(torch, K, cfg, rng):
             f"bound {bms:.8f} ms ({bby})")
         log(_per_output(errs))
         rows["propagate_block_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+
+        # 5. triage (bitwise equal by construction: no FMA contraction)
+        rcond = default_rcond(dtype)
+        targs = (*triage, rcond, cfg.width, cfg.height)
+        F, M = triage[2].shape
+        out_k = K.triage_refresh_fused(*targs)
+        out_p = K.triage_refresh_fused_plain(*targs)
+        torch.cuda.synchronize()
+        ok = out_k[2]
+        check(torch.equal(ok, out_p[2]), "triage: ok decisions differ")
+        check(not ok[1] and not ok[2], "triage: a point behind or outside its anchor passed")
+        errs = {"m": assert_close("triage m", out_k[0], out_p[0], tol, floor=True),
+                "rho": assert_close("triage rho", out_k[1], out_p[1], tol)}
+        ea, er = _worst(errs)
+        ms = time_ms(torch, lambda: K.triage_refresh_fused(*targs))
+        dev_ms = kernel_only_ms(torch, lambda: K.triage_refresh_fused(*targs), "triage_kernel")
+        plain = time_ms(torch, lambda: K.triage_refresh_fused_plain(*targs))
+        nbytes = (F * M * 7 + F * 12 + 18 + F * 4) * sz + F
+        bms, bby = bound_ms(nbytes, F * M * TRIAGE_FLOPS_PER_OBS + F * TRIAGE_FLOPS_PER_TRACK,
+                            dtype_name)
+        log(f"triage        F={F} M={M}: max abs {ea:.3e} rel {er:.3e}; {int(ok.sum())}/{F} ok "
+            f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
+            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
+        log(_per_output(errs))
+        rows["triage_refresh_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+
+        # 6. fused update terms. The kernel builds S by its own loops and the
+        # plain version by matrix products, so gamma differs by round-off:
+        # a decision may differ only where gamma lies within the tolerance
+        # of its threshold. A and c are compared on the kernel's decisions.
+        H, Hf, ru, P, crit, sel_ok = update
+        U, n2, D = H.shape
+        sigma2 = cfg.sigma_image**2
+        uargs = (H, Hf, ru, P, crit, sel_ok, sigma2, rcond)
+        A_k, c_k, p_k = K.update_terms_fused(*uargs)
+        A_k2, c_k2, _ = K.update_terms_fused(*uargs)
+        H_t, r_t, gamma = K.update_terms_gamma_plain(H, Hf, ru, P, sigma2, rcond)
+        p_p = sel_ok & (gamma <= crit)
+        torch.cuda.synchronize()
+        check(torch.equal(A_k, A_k2) and torch.equal(c_k, c_k2), "update terms: runs differ")
+        check(not torch.isfinite(gamma[5]) and not p_k[5], "update terms: a non-PD S passed")
+        check(not p_k[2] and not p_k[~sel_ok].any(), "update terms: NaN crit or padding passed")
+        near = []
+        for u in torch.nonzero(p_k != p_p)[:, 0].tolist():
+            g, cr = float(gamma[u]), float(crit[u])
+            check(abs(g - cr) <= tol * abs(cr),
+                  f"update terms: gate decision differs on track {u} (gamma {g}, crit {cr})")
+            near.append(f"track {u} (gamma {g:.6g}, crit {cr:.6g})")
+        A_p, c_p = K.update_terms_masked_plain(H_t, r_t, p_k)
+        errs = {"A": assert_close("update terms A", A_k, A_p, tol, floor=True),
+                "c": assert_close("update terms c", c_k, c_p, tol, floor=True)}
+        ea, er = _worst(errs)
+        ms = time_ms(torch, lambda: K.update_terms_fused(*uargs))
+        launch_names = ("update_track_kernel", "update_accumulate_kernel")
+        dev_ms = kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), launch_names)
+        split = ", ".join(
+            f"{m} {_fmt_ms(kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), m))}"
+            for m in launch_names)
+        plain = time_ms(torch, lambda: K.update_terms_fused_plain(*uargs))
+        nbytes = (U * n2 * (D + 4) + 2 * D * D + D + U) * sz + 2 * U
+        bms, bby = bound_ms(nbytes, update_terms_flops(U, n2, D), dtype_name,
+                            PEAK_FLOPS_MATMUL)
+        log(f"update terms  U={U} 2M={n2} D={D}: max abs {ea:.3e} rel {er:.3e}; "
+            f"{int(p_k.sum())}/{U} pass, "
+            + (f"decisions differ within tolerance of the threshold on {near}; " if near
+               else "decisions equal; ")
+            + f"kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}: {split}), "
+            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
+        log(_per_output(errs))
+        rows["update_terms_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
         if dtype_name == "float32":
             rows32 = dict(rows)
     return rows32
@@ -389,83 +545,128 @@ def _flat(pre, fr, name):
     return np.concatenate([a[pv], b.reshape((-1,) + b.shape[2:])[fv]])
 
 
-def phase_parity(torch, pkg, seq):
-    cfg = pkg.reference_experiment_config(dtype="float64", f_max=512, u_max=64, k_max=512,
-                                          use_pallas_triage=False)
-    T = 600
-    res = {}
-    for dev in (DEVICE, "cpu"):
-        _, run = _run(torch, pkg, cfg, seq, dev, T)
-        t0 = time.perf_counter()
-        final, pre, fr = run()
-        torch.cuda.synchronize()
-        res[dev] = (final, pre, fr, time.perf_counter() - t0)
-    (fg, pg, rg, tg), (fc, pc, rc, tc) = res[DEVICE], res["cpu"]
-    for name in ("n_cams", "n_tracks"):
-        check(np.array_equal(_flat(pg, rg, name), _flat(pc, rc, name)), f"parity: {name} differ")
-    counters = {}
-    for k in ("n_homography_rejected", "n_epipolar_rejected", "n_gating_rejected",
-              "n_track_overflow", "n_update_overflow"):
-        a, b = int(getattr(fg.diag, k)), int(getattr(fc.diag, k))
-        check(a == b, f"parity: {k} differs ({a} vs {b})")
-        counters[k] = a
-    worst = {}
-    for name in ("p_WI", "v_WI", "R_WI"):
-        d = float(np.abs(_flat(pg, rg, name) - _flat(pc, rc, name)).max())
-        check(d <= 1e-7, f"parity: {name} differs by {d}")
-        worst[name] = d
-    for name in ("sigma_pos", "sigma_rot"):
-        a, b = _flat(pg, rg, name), _flat(pc, rc, name)
-        check(np.allclose(a, b, rtol=1e-4, atol=1e-16), f"parity: {name} differs")
-        worst[name] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
-    log(f"parity: T={T} ticks, float64, card {tg:.2f} s vs CPU {tc:.2f} s; counters equal "
-        f"{counters}; max |dp| {worst['p_WI']:.2e}, |dv| {worst['v_WI']:.2e}, "
-        f"|dR| {worst['R_WI']:.2e}, sigma rel {max(worst['sigma_pos'], worst['sigma_rot']):.2e}")
+def path_kernels(cfg) -> set:
+    """The kernels a configuration's frame loop launches."""
+    names = {"verification_scores", "propagate_block_fused", "p15_recurrence_fused"}
+    if cfg.use_pallas_triage:
+        names.add("triage_refresh_fused")
+    if cfg.update_kernel == "fused":
+        names.add("update_terms_fused")
+    elif cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
+        names.add("batched_gating_gamma")
+    return names
 
 
 def _block_kind(B: int) -> str:
     return "propagate_block_fused" if B <= 2 else ("p15_recurrence_fused" if B <= 64 else "scan")
 
 
-def phase_main(torch, pkg, K, seq, kernel_rows):
-    cfg = pkg.reference_experiment_config(use_pallas_triage=False)  # f32, f64 island
-    check(cfg.dtype == "float32" and cfg.correction_dtype == "float64", "slice config")
+def predicted_launches(K, cfg, stats, C: int, B: int, Bp: int) -> dict:
+    """Launches of each kernel over one run of C frame blocks of B ticks
+    after a Bp-tick prefix, from the loop's own counts: the propagation
+    kernels by block length; verification once per camera step; the triage
+    once per camera step and once per prune (the prune triages whether or
+    not it then updates); the update kernel once per update."""
+    pred = dict.fromkeys(K.LAUNCHES, 0)
+    for kind in (_block_kind(Bp), *[_block_kind(1), _block_kind(B - 1)] * C):
+        if kind != "scan":
+            pred[kind] += 1
+    pred["verification_scores"] = stats.camera_steps
+    updates = stats.camera_steps + stats.prune_updates
+    if "triage_refresh_fused" in path_kernels(cfg):
+        pred["triage_refresh_fused"] = stats.camera_steps + stats.prunes
+    for name in ("update_terms_fused", "batched_gating_gamma"):
+        if name in path_kernels(cfg):
+            pred[name] = updates
+    return pred
+
+
+def phase_parity(torch, pkg, K, seq, label, **overrides):
+    cfg = pkg.reference_experiment_config(dtype="float64", f_max=512, u_max=64, k_max=512,
+                                          **overrides)
+    T = 600
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        _, run = _run(torch, pkg, cfg, seq, dev, T)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        final, pre, fr = run()
+        torch.cuda.synchronize()
+        res[dev] = (final, pre, fr, time.perf_counter() - t0)
+        if dev == DEVICE:
+            card_launches = K.launch_counts()
+    for k in path_kernels(cfg):
+        check(card_launches[k] > 0, f"parity {label}: kernel {k} not launched on the card")
+    (fg, pg, rg, tg), (fc, pc, rc, tc) = res[DEVICE], res["cpu"]
+    for name in ("n_cams", "n_tracks"):
+        check(np.array_equal(_flat(pg, rg, name), _flat(pc, rc, name)),
+              f"parity {label}: {name} differ")
+    counters = {}
+    for k in ("n_homography_rejected", "n_epipolar_rejected", "n_gating_rejected",
+              "n_track_overflow", "n_update_overflow"):
+        a, b = int(getattr(fg.diag, k)), int(getattr(fc.diag, k))
+        check(a == b, f"parity {label}: {k} differs ({a} vs {b})")
+        counters[k] = a
+    worst = {}
+    for name in ("p_WI", "v_WI", "R_WI"):
+        d = float(np.abs(_flat(pg, rg, name) - _flat(pc, rc, name)).max())
+        check(d <= 1e-7, f"parity {label}: {name} differs by {d}")
+        worst[name] = d
+    for name in ("sigma_pos", "sigma_rot"):
+        a, b = _flat(pg, rg, name), _flat(pc, rc, name)
+        check(np.allclose(a, b, rtol=1e-4, atol=1e-16), f"parity {label}: {name} differs")
+        worst[name] = float((np.abs(a - b) / np.maximum(np.abs(b), 1e-300)).max())
+    log(f"parity {label}: T={T} ticks, float64, card {tg:.2f} s vs CPU {tc:.2f} s; counters "
+        f"equal {counters}; max |dp| {worst['p_WI']:.2e}, |dv| {worst['v_WI']:.2e}, "
+        f"|dR| {worst['R_WI']:.2e}, sigma rel {max(worst['sigma_pos'], worst['sigma_rot']):.2e}")
+
+
+def drive(torch, pkg, K, seq, cfg, label, max_ticks=None):
+    """The configuration's driven run: launch counts set to 0 just before
+    it and read just after; no overflow, launches equal to the loop's
+    prediction, every kernel of the path launched, and over the whole circle
+    a final position error under 0.2 m. Returns (run, stats, launches,
+    number of frames, seconds)."""
     stats = pkg.FrameStats()
-    std, run = _run(torch, pkg, cfg, seq, DEVICE, None, stats)
+    std, run = _run(torch, pkg, cfg, seq, DEVICE, max_ticks, stats)
     C, B = std.frames["imu_ts"].shape
     Bp = std.prefix["imu_ts"].shape[0]
-    gt = seq.poses_t[len(seq.timestamps) - 1]
-
-    # the driven run: counts from 0, read right after
+    torch.cuda.synchronize()
     K.reset_launches()
     t0 = time.perf_counter()
     final, _, _ = run()
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     launches = K.launch_counts()
-    err = float(np.linalg.norm(final.imu.p_WI.double().cpu().numpy() - gt))
     overflow = int(final.diag.n_track_overflow) + int(final.diag.n_update_overflow)
-    check(np.isfinite(err), f"main: non-finite final position ({err})")
-    check(err < 0.2, f"main: final position error {err:.4f} m >= 0.2 m")
-    check(overflow == 0, f"main: capacity overflow {overflow}")
-
-    predicted = dict.fromkeys(launches, 0)
-    for kind in (_block_kind(Bp), *[_block_kind(1), _block_kind(B - 1)] * C):
-        if kind != "scan":
-            predicted[kind] += 1
-    predicted["verification_scores"] = stats.camera_steps
-    predicted["batched_gating_gamma"] = stats.camera_steps + stats.prune_updates
+    check(overflow == 0, f"{label}: capacity overflow {overflow}")
+    err_txt = ""
+    if max_ticks is None:
+        gt = seq.poses_t[len(seq.timestamps) - 1]
+        err = float(np.linalg.norm(final.imu.p_WI.double().cpu().numpy() - gt))
+        check(np.isfinite(err), f"{label}: non-finite final position ({err})")
+        check(err < 0.2, f"{label}: final position error {err:.4f} m >= 0.2 m")
+        err_txt = f"final error {err:.4f} m, "
+    predicted = predicted_launches(K, cfg, stats, C, B, Bp)
+    for k in path_kernels(cfg):
+        check(launches[k] > 0, f"{label}: kernel {k} never launched")
     for k, v in launches.items():
-        check(v > 0, f"main: kernel {k} never launched")
-        check(v == predicted[k], f"main: {k} launched {v} times, loop predicts {predicted[k]}")
-    syncs, frames = stats.host_syncs, stats.frames
-    log(f"main: {C} frames x {B} ticks (+{Bp}-tick prefix), float32 filter, float64 island, "
-        f"f_max={cfg.f_max} u_max={cfg.u_max} k_max={cfg.k_max} desc_dim={cfg.desc_dim}")
-    log(f"main: final error {err:.4f} m, overflow 0, {stats.prunes} prunes "
-        f"({stats.prune_updates} with an update), launches {launches} (= predicted)")
+        check(v == predicted[k], f"{label}: {k} launched {v} times, loop predicts {predicted[k]}")
+    log(f"{label}: {C} frames x {B} ticks (+{Bp}-tick prefix), {cfg.dtype} filter, "
+        f"{cfg.correction_dtype} island, use_pallas_triage={cfg.use_pallas_triage}, "
+        f"update_kernel={cfg.update_kernel!r}, f_max={cfg.f_max} u_max={cfg.u_max} "
+        f"k_max={cfg.k_max} desc_dim={cfg.desc_dim}")
+    log(f"{label}: {err_txt}overflow 0, {stats.camera_steps} camera steps, {stats.prunes} "
+        f"prunes ({stats.prune_updates} with an update), launches "
+        f"{ {k: v for k, v in launches.items() if v} } (= predicted; the others 0)")
+    return run, stats, launches, C, seconds
 
-    # synchronizing calls seen by PyTorch over one run, for comparison with
-    # the loop's own count of its host branches
+
+def sync_check(torch, run, stats, label):
+    """One run under PyTorch's sync-debug mode: every synchronizing call of
+    the port must be one of the loop's counted branches (the rest is this
+    function's own synchronize()). Returns the warnings by site."""
+    before = stats.host_syncs
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -475,39 +676,99 @@ def phase_main(torch, pkg, K, seq, kernel_rows):
             torch.cuda.synchronize()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    sync_sites = {}
-    n_port_syncs = 0
+    sites = {}
+    n_port = 0
     for w in caught:
         if "synchroniz" in str(w.message):
             site = f"{Path(w.filename).name}:{w.lineno}"
-            sync_sites[site] = sync_sites.get(site, 0) + 1
-            n_port_syncs += "msckf_tpu_torch" in Path(w.filename).parts
-    n_sync_warn = sum(sync_sites.values())
-    # every synchronizing call of the port is one of the loop's counted
-    # branches (the rest is this function's own synchronize())
-    check(n_port_syncs == stats.host_syncs - syncs,
-          f"main: {n_port_syncs} synchronizing calls in the port, the loop counts "
-          f"{stats.host_syncs - syncs}")
+            sites[site] = sites.get(site, 0) + 1
+            n_port += "msckf_tpu_torch" in Path(w.filename).parts
+    check(n_port == stats.host_syncs - before,
+          f"{label}: {n_port} synchronizing calls in the port, the loop counts "
+          f"{stats.host_syncs - before}")
+    return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
 
-    times = []
-    for _ in range(3):
+
+def timed_runs(torch, runs: dict, order) -> dict:
+    """Host seconds of each named run (ending in a synchronize), taken in
+    the given order of names."""
+    times = {name: [] for name in runs}
+    for name in order:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run()
+        runs[name]()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    t_med = float(np.median(times))
-    kernel_ms = sum(launches[k] * kernel_rows[k]["ms"] for k in launches)
-    log(f"main: {C / t_med:.2f} camera frames/s, {t_med / C * 1e3:.3f} ms/frame "
-        f"(median of 3 runs {[round(x, 4) for x in times]} s; first run {first_s:.3f} s)")
-    log(f"main: kernels' share of the frame time {kernel_ms / (t_med * 1e3) * 100:.2f}% "
-        f"({kernel_ms:.3f} ms of {t_med * 1e3:.1f} ms per run, from launches x kernel ms)")
-    log(f"main: host syncs per frame {syncs / frames:.3f} (the loop's count: {syncs} "
-        f"over the driven run's {frames} frames); "
-        f"PyTorch sync-debug warnings over one run: {n_sync_warn}, by site "
-        f"{dict(sorted(sync_sites.items(), key=lambda kv: -kv[1]))}")
+        times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def _rate(C, times) -> str:
+    t = float(np.median(times))
+    return (f"{C / t:.2f} camera frames/s, {t / C * 1e3:.3f} ms/frame (median of "
+            f"{len(times)} runs {[round(x, 4) for x in times]} s)")
+
+
+def phase_main(torch, pkg, K, seq):
+    cfg = pkg.reference_experiment_config()  # the JAX package's default
+    check(cfg.dtype == "float32" and cfg.correction_dtype == "float64"
+          and cfg.use_pallas_triage and cfg.update_kernel == "hybrid"
+          and cfg.gating_solver == "auto", "main: not the default configuration")
+    run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, "main")
+    syncs, frames = stats.host_syncs, stats.frames
+    sites = sync_check(torch, run, stats, "main")
+    log(f"main: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
+        f"loop's count: {syncs} over the driven run's {frames} frames); PyTorch sync-debug "
+        f"warnings over one run: {sum(sites.values())}, by site {sites}")
     profile_window(torch, pkg, cfg, seq)
-    return launches
+    return run, C, launches, first_s
+
+
+def phase_driven(torch, pkg, K, seq, label, **overrides):
+    """A whole-circle configuration other than the default: its driven run
+    and the sync check."""
+    cfg = pkg.reference_experiment_config(**overrides)
+    run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, label)
+    syncs, frames = stats.host_syncs, stats.frames
+    sites = sync_check(torch, run, stats, label)
+    log(f"{label}: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
+        f"loop's count: {syncs} over {frames} frames); PyTorch sync-debug warnings over one "
+        f"run: {sum(sites.values())}, by site {sites}")
+    return run, C, launches, first_s
+
+
+def compare_rates(torch, kernel_rows, driven: dict):
+    """Frames/s over the whole circle of each driven configuration, 3 runs
+    each: the driven run (in the order the phases ran), then two more in
+    turns (CBA ABC) within this call; the kernels' share of the frame time
+    from launches x kernel call time."""
+    runs = {name: run for name, (run, _, _, _) in driven.items()}
+    C = next(iter(driven.values()))[1]
+    names = list(runs)
+    times = timed_runs(torch, runs, names[::-1] + names)
+    for name in names:
+        times[name].insert(0, driven[name][3])
+    med = {name: float(np.median(t)) for name, t in times.items()}
+    for name in names:
+        launches = driven[name][2]
+        kernel_ms = sum(launches[k] * kernel_rows[k]["ms"] for k in launches)
+        log(f"rates: {name} {_rate(C, times[name])}; kernels' share of the frame time "
+            f"{kernel_ms / (med[name] * 1e3) * 100:.2f}% ({kernel_ms:.3f} ms of "
+            f"{med[name] * 1e3:.1f} ms per run, from launches x kernel ms)")
+    if "default" in med:
+        ratios = ", ".join(f"{name} / default {med['default'] / med[name]:.3f}"
+                           for name in names if name != "default")
+        order = names + names[::-1] + names
+        log(f"rates: frames/s ratios {ratios} (runs in turns "
+            f"{''.join('ABC'[names.index(n)] for n in order)}, the first of each the "
+            f"driven run)")
+
+
+def phase_xla(torch, pkg, K, seq):
+    cfg = pkg.reference_experiment_config(update_kernel="xla")
+    run, stats, _, _, seconds = drive(torch, pkg, K, seq, cfg, "xla", max_ticks=400)
+    sites = sync_check(torch, run, stats, "xla")
+    log(f"xla: 400 ticks in {seconds:.3f} s; PyTorch sync-debug warnings over one run "
+        f"{sum(sites.values())}, by site {sites} (the port's equal the loop's count)")
 
 
 def profile_window(torch, pkg, cfg, seq, n_frames: int = 20):
@@ -582,21 +843,48 @@ def main(argv=None) -> int:
             if "registers" in line or line.startswith("=="):
                 log("   " + line.strip())
 
-    cfg = pkg.reference_experiment_config(use_pallas_triage=False)
+    cfg = pkg.reference_experiment_config()
+    start = time.perf_counter()
+
+    def phase(name):
+        log(f"== {name} (at {time.perf_counter() - start:.1f} s)")
+
     kernel_rows = None
     if "kernels" in phases:
-        log("== kernels")
+        phase("kernels")
         kernel_rows = phase_kernels(torch, K, cfg, np.random.default_rng(0))
         K.reset_launches()  # the comparisons above are not the main path's launches
     seq = generate_circle_sequence(rng=np.random.default_rng(0), desc_dim=10)
     if "parity" in phases:
-        log("== parity")
-        phase_parity(torch, pkg, seq)
-    launches = None
+        phase("parity")
+        phase_parity(torch, pkg, K, seq, "default")
+        phase_parity(torch, pkg, K, seq, "fused", update_kernel="fused")
+        phase_parity(torch, pkg, K, seq, "plain triage", use_pallas_triage=False)
+    # each kernel's launches come from the driven run of its path
+    launches = dict.fromkeys(K.LAUNCHES)
+    driven = {}
     if "main" in phases:
         check(kernel_rows is not None, "the main phase needs the kernels phase")
-        log("== main")
-        launches = phase_main(torch, pkg, K, seq, kernel_rows)
+        phase("main")
+        driven["default"] = phase_main(torch, pkg, K, seq)
+        launches.update({k: v for k, v in driven["default"][2].items() if v})
+    if "fused" in phases:
+        check(kernel_rows is not None, "the fused phase needs the kernels phase")
+        phase("fused")
+        driven["fused"] = phase_driven(torch, pkg, K, seq, "fused", update_kernel="fused")
+        launches["update_terms_fused"] = driven["fused"][2]["update_terms_fused"]
+    if "plain" in phases:
+        check(kernel_rows is not None, "the plain phase needs the kernels phase")
+        phase("plain")
+        driven["plain triage"] = phase_driven(torch, pkg, K, seq, "plain triage",
+                                              use_pallas_triage=False)
+    if driven:
+        phase("rates")
+        compare_rates(torch, kernel_rows, driven)
+    if "xla" in phases:
+        phase("xla")
+        phase_xla(torch, pkg, K, seq)
+    log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:
         src = {
@@ -604,6 +892,8 @@ def main(argv=None) -> int:
             "verification_scores": ("verification.cu", 626),
             "p15_recurrence_fused": ("p15_recurrence.cu", 951),
             "propagate_block_fused": ("propagate_block.cu", 1020),
+            "triage_refresh_fused": ("triage.cu", 771),
+            "update_terms_fused": ("update_terms.cu", 303),
         }
         line = {"kernels": [
             {
@@ -611,7 +901,7 @@ def main(argv=None) -> int:
                 "route": "cuda",
                 "source": f"msckf_tpu_torch/csrc/{src[name][0]}",
                 "replaces": f"msckf_tpu/ops/pallas_kernels.py:{src[name][1]}",
-                "launches": None if launches is None else launches[name],
+                "launches": launches[name],
                 "max_abs_err": row["err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain"],

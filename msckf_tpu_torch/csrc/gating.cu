@@ -5,11 +5,9 @@
 // _gating_call (:170) -> _gating_kernel_blocked (:103).
 //
 // Algorithm (the TPU kernel's): right-looking Cholesky in panels of NB = 8
-// columns with the forward substitution fused in, gamma = sum_j y_j^2. The
-// pivot column is read as the pivot ROW of the working matrix, as the TPU
-// kernel does: S built as H P H^T + sigma^2 I is not bitwise symmetric, and
-// the row is what the reference kernel factors. rsqrt of a non-positive
-// pivot poisons gamma (NaN or inf), so `gamma <= crit` fails the gate.
+// columns with the forward substitution fused in, gamma = sum_j y_j^2, read
+// by pivot rows; the recurrence is block_gating_gamma in common.cuh, shared
+// with the fused update-terms kernel.
 //
 // Design: one thread block per system. S (16 KB in f32, 32 KB in f64) lives
 // in shared memory for the whole factorization; per column the block
@@ -25,18 +23,16 @@
 
 namespace {
 
-constexpr int kMaxN = 64;
-constexpr int kNB = 8;
 constexpr int kThreads = 256;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gating_kernel(const T* __restrict__ S, const T* __restrict__ r,
               T* __restrict__ gamma, int n) {
-  __shared__ T A[kMaxN * kMaxN];
-  __shared__ T panel[kNB][kMaxN];
-  __shared__ T rowj[kMaxN];
-  __shared__ T rr[kMaxN];
+  __shared__ T A[kGateMaxN * kGateMaxN];
+  __shared__ T panel[kGateNB * kGateMaxN];
+  __shared__ T rowj[kGateMaxN];
+  __shared__ T rr[kGateMaxN];
 
   const int u = blockIdx.x;
   const int tid = threadIdx.x;
@@ -45,46 +41,14 @@ gating_kernel(const T* __restrict__ S, const T* __restrict__ r,
   for (int c = tid; c < n; c += blockDim.x) rr[c] = r[(size_t)u * n + c];
   __syncthreads();
 
-  T g = T(0);  // the running sum, kept by thread 0
-  for (int k0 = 0; k0 < n; k0 += kNB) {
-    const int w = min(kNB, n - k0);
-    for (int j = 0; j < w; ++j) {
-      const int jj = k0 + j;
-      // pivot row with this panel's earlier columns applied
-      for (int c = tid; c < n; c += blockDim.x) {
-        T x = A[jj * n + c];
-        for (int k = 0; k < j; ++k) x = x - panel[k][c] * panel[k][jj];
-        rowj[c] = x;
-      }
-      __syncthreads();
-      const T inv_sqrt_d = rsqrt_t(rowj[jj]);
-      const T yj = rr[jj] * inv_sqrt_d;
-      // column of L (zero above the pivot) and one substitution step;
-      // rr[jj] itself is not written here, so reading it above is safe
-      for (int c = tid; c < n; c += blockDim.x) {
-        const T l = (c >= jj) ? rowj[c] * inv_sqrt_d : T(0);
-        panel[j][c] = l;
-        if (c > jj) rr[c] = rr[c] - l * yj;
-      }
-      if (tid == 0) g = g + yj * yj;
-      __syncthreads();
-    }
-    // one trailing pass per panel: A -= sum_j l_j l_j^T
-    for (int e = tid; e < n * n; e += blockDim.x) {
-      const int a = e / n, b = e - a * n;
-      T upd = panel[0][a] * panel[0][b];
-      for (int j = 1; j < w; ++j) upd = upd + panel[j][a] * panel[j][b];
-      A[e] = A[e] - upd;
-    }
-    __syncthreads();
-  }
+  const T g = block_gating_gamma(A, rr, panel, rowj, n);
   if (tid == 0) gamma[u] = g;
 }
 
 template <typename T>
 int launch(const void* S, const void* r, void* gamma, int U, int n,
            cudaStream_t stream) {
-  if (n < 1 || n > kMaxN || U < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || n > kGateMaxN || U < 1) return (int)cudaErrorInvalidValue;
   gating_kernel<T><<<U, kThreads, 0, stream>>>(
       static_cast<const T*>(S), static_cast<const T*>(r),
       static_cast<T*>(gamma), n);

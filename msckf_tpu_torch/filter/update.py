@@ -7,11 +7,14 @@ Pi = I - H_f (H_f^T H_f)^+ H_f^T, and the Kalman update in information form
 from A = sum H~^T H~ and c = sum H~^T r~ over gated features plus one
 (D, D) solve.
 
-What the slice takes: the plain line-intersection triage
-(``use_pallas_triage=False``), the hybrid update terms with the gating
-kernel (``update_kernel="hybrid"``, ``gating_solver="auto"``), and the LU
-gain solve with a float64 or float32 correction chain. The other settings
-raise ``NotImplementedError``.
+What the port takes: the triage kernel (``use_pallas_triage=True``, the
+default) or the plain line-intersection triage; the hybrid update terms with
+the gating kernel (``update_kernel="hybrid"``, ``gating_solver="auto"``, the
+default), the fused update-terms kernel (``update_kernel="fused"``, which
+ignores ``gating_solver`` as in the JAX package), or the hybrid terms with
+the batched-Cholesky gate (``update_kernel="xla"`` or
+``gating_solver="xla"``); and the LU gain solve with a float64 or float32
+correction chain. The other settings raise ``NotImplementedError``.
 
 One repair against the JAX package: it masks the per-track factor W but not
 Kc in T_wk = sum W^T Kc, so a rejected track with an inf Jacobian gives
@@ -50,9 +53,8 @@ def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) 
     """Valid = (lost with a long-enough history) or (parallax between first
     and last bearing above threshold); valid tracks are triangulated by
     weighted line intersection and their inverse-depth point refreshed when
-    the point re-projects into the anchor camera's image."""
-    if cfg.use_pallas and cfg.use_pallas_triage:
-        unsupported("use_pallas_triage", True, "§2 kernel 1, triage_refresh_fused")
+    the point re-projects into the anchor camera's image (the triage kernel,
+    or its plain line-intersection form with ``use_pallas_triage=False``)."""
     if cfg.triangulation != "lines":
         unsupported("triangulation", cfg.triangulation, "§1 later slices")
     c = device_consts(cfg, state.device)
@@ -80,22 +82,32 @@ def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) 
 
     # triangulate + refresh the inverse-depth point of valid tracks
     R_a, t_a, _ = gather_cam_poses(tr.obs_cam_id[:, 0], state.cams)
-    W_p = intersect_lines(tr.line_base, tr.line_dir, tr.score, tr.obs_valid)
-    Ci_p = matvec_small(transpose_small(R_a), W_p - t_a)  # R_a^T (W_p - t_a)
-    z = Ci_p[:, 2:3]
-    z_safe = torch.where(z.abs() < 1e-30, torch.full_like(z, 1e-30), z)
-    Im_p = (Ci_p @ c.K.T)[:, :2] / z_safe
-    in_front = Ci_p[:, 2] > 0
-    in_fov = (
-        (Im_p[:, 0] >= 0) & (Im_p[:, 0] < cfg.width)
-        & (Im_p[:, 1] >= 0) & (Im_p[:, 1] < cfg.height)
-    )
-    refresh = valid & in_front & in_fov
+    if cfg.use_pallas and cfg.use_pallas_triage:
+        # the line fields are views of the packed observation store
+        new_m, new_rho_raw, proj_ok = kernels.triage_refresh_fused(
+            tr.line_base.contiguous(), tr.line_dir.contiguous(),
+            torch.where(tr.obs_valid, tr.score, 0.0), R_a, t_a,
+            c.K, c.Kinv, default_rcond(cfg.jdtype), cfg.width, cfg.height,
+        )
+        refresh = valid & proj_ok
+        new_rho = torch.where(refresh, new_rho_raw, torch.ones_like(new_rho_raw))
+    else:
+        W_p = intersect_lines(tr.line_base, tr.line_dir, tr.score, tr.obs_valid)
+        Ci_p = matvec_small(transpose_small(R_a), W_p - t_a)  # R_a^T (W_p - t_a)
+        z = Ci_p[:, 2:3]
+        z_safe = torch.where(z.abs() < 1e-30, torch.full_like(z, 1e-30), z)
+        Im_p = (Ci_p @ c.K.T)[:, :2] / z_safe
+        in_front = Ci_p[:, 2] > 0
+        in_fov = (
+            (Im_p[:, 0] >= 0) & (Im_p[:, 0] < cfg.width)
+            & (Im_p[:, 1] >= 0) & (Im_p[:, 1] < cfg.height)
+        )
+        refresh = valid & in_front & in_fov
 
-    ones = torch.ones((Im_p.shape[0], 1), dtype=Im_p.dtype, device=Im_p.device)
-    W_v = matvec_small(R_a, torch.cat([Im_p, ones], dim=-1) @ c.Kinv.T)
-    new_m = idp_angles_m(W_v)
-    new_rho = 1.0 / torch.where(refresh, Ci_p[:, 2], torch.ones_like(Ci_p[:, 2]))
+        ones = torch.ones((Im_p.shape[0], 1), dtype=Im_p.dtype, device=Im_p.device)
+        W_v = matvec_small(R_a, torch.cat([Im_p, ones], dim=-1) @ c.Kinv.T)
+        new_m = idp_angles_m(W_v)
+        new_rho = 1.0 / torch.where(refresh, Ci_p[:, 2], torch.ones_like(Ci_p[:, 2]))
     tracks = tr.replace(
         idp_m=torch.where(refresh[:, None], new_m, tr.idp_m),
         idp_rho=torch.where(refresh, new_rho, tr.idp_rho),
@@ -113,13 +125,11 @@ class UpdateTerms(NamedTuple):
 
 def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor) -> UpdateTerms:
     """Residuals, OC-projected Jacobians, nullspace projection, chi-square
-    gate (the gating kernel) and the information-form accumulation."""
+    gate and the information-form accumulation: the fused update-terms
+    kernel, or the hybrid terms gated by the gating kernel or by a batched
+    Cholesky."""
     if not cfg.use_pallas:
         unsupported("use_pallas", False, "§1 later slices: the XLA-only forms")
-    if cfg.update_kernel != "hybrid":
-        unsupported("update_kernel", cfg.update_kernel, "§2 kernel 2, update_terms_fused")
-    if cfg.gating_solver != "auto":
-        unsupported("gating_solver", cfg.gating_solver, "§1 later slices")
     dt_ = cfg.jdtype
     dev = state.device
     cst = device_consts(cfg, dev)
@@ -190,15 +200,33 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     crit = cst.chi2[dof]
     sigma2 = cfg.sigma_image**2
 
+    # camera-span Jacobian: each row lives in one 6-col camera block,
+    # Hcam[u, r, 6n+j] = Hx6[u, r, j] * onehot[u, r, n]
+    oh_rows = torch.repeat_interleave(onehot, 2, dim=1)  # (U, 2M, N), rows (m, c)
+    Hcam = (oh_rows[..., :, None] * Hx6.reshape(U, 2 * M, 1, 6)).reshape(U, 2 * M, 6 * N)
+
+    if cfg.update_kernel == "fused":
+        # projector, gate and masked accumulation in one kernel call over the
+        # camera span: the 15 IMU columns of the Jacobian are zero, so they
+        # add nothing to S, A or c, and A and c are padded as below
+        A_cam, c_cam, passed = kernels.update_terms_fused(
+            Hcam, Hf_stack, r_stack, state.P[15:, 15:].contiguous(),
+            crit, sel_ok, sigma2, default_rcond(dt_),
+        )
+        return UpdateTerms(
+            A=torch.nn.functional.pad(A_cam, (15, 0, 15, 0)),
+            c=torch.nn.functional.pad(c_cam, (15, 0)),
+            any_pass=torch.any(passed), n_gate_rejected=torch.sum(sel_ok & ~passed),
+            n_overflow=torch.clamp(n_overflow, min=0),
+        )
+    if cfg.gating_solver == "ns":
+        unsupported("gating_solver", cfg.gating_solver, "§1 later slices")
+
     # nullspace projector: r~ = r - Hf pinv (Hf^T r), H~ = H - Hf pinv (Hf^T H)
     HtH = torch.einsum("uri,urj->uij", Hf_stack, Hf_stack)
     Hpinv = tikhonov_inv_sym3(HtH, default_rcond(dt_))
     Hf_r = torch.einsum("uri,ur->ui", Hf_stack, r_stack)
     r_t = r_stack - torch.einsum("uri,uij,uj->ur", Hf_stack, Hpinv, Hf_r)
-    # camera-span Jacobian: each row lives in one 6-col camera block,
-    # Hcam[u, r, 6n+j] = Hx6[u, r, j] * onehot[u, r, n]
-    oh_rows = torch.repeat_interleave(onehot, 2, dim=1)  # (U, 2M, N), rows (m, c)
-    Hcam = (oh_rows[..., :, None] * Hx6.reshape(U, 2 * M, 1, 6)).reshape(U, 2 * M, 6 * N)
     Wc = torch.einsum("uri,urd->uid", Hf_stack, Hcam)  # (U, 3, 6N)
     Kc = torch.einsum("uik,ukd->uid", Hpinv, Wc)
     H_t = Hcam - torch.einsum("uri,uid->urd", Hf_stack, Kc)  # (U, 2M, 6N)
@@ -206,7 +234,10 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     # chi-square gate: gamma = r~^T S^-1 r~ with S = H~ P H~^T + sigma^2 I
     HP = torch.einsum("urd,de->ure", H_t, state.P[15:, 15:])
     S = torch.einsum("ure,use->urs", HP, H_t) + sigma2 * torch.eye(2 * M, dtype=dt_, device=dev)
-    gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
+    if cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
+        gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
+    else:
+        gamma = _cholesky_gamma(S, r_t)
     passed = sel_ok & (gamma <= crit)  # NaN crit (dof 0) and NaN gamma fail
     n_rej = torch.sum(sel_ok & ~passed)
 
@@ -233,6 +264,18 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
         A=A, c=c, any_pass=torch.any(passed), n_gate_rejected=n_rej,
         n_overflow=torch.clamp(n_overflow, min=0),
     )
+
+
+def _cholesky_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """gamma = r^T S^-1 r by a batched Cholesky solve of the symmetrized S
+    (the JAX package's ``jnp.linalg.cholesky`` symmetrizes its input). A
+    system that is not positive definite gets gamma = NaN, which fails the
+    gate, as the JAX Cholesky's NaN factor does; ``cholesky_ex`` runs
+    without its error check, which would wait for the device."""
+    L, info = torch.linalg.cholesky_ex(0.5 * (S + S.transpose(-1, -2)))
+    sol = torch.cholesky_solve(r[..., None], L)[..., 0]
+    gamma = torch.sum(r * sol, dim=-1)
+    return torch.where(info == 0, gamma, torch.full_like(gamma, float("nan")))
 
 
 def _correction_terms(cfg: MSCKFConfig, P, A, c):

@@ -1,6 +1,6 @@
-"""The port's four hand-written CUDA kernels: wrappers, plain versions, build.
+"""The port's six hand-written CUDA kernels: wrappers, plain versions, build.
 
-Each TPU kernel of the slice's main path (``msckf_tpu/ops/pallas_kernels.py``)
+Each TPU kernel of the JAX package (``msckf_tpu/ops/pallas_kernels.py``)
 has here
 
 * a wrapper with the JAX package's public name, which checks its inputs,
@@ -9,9 +9,10 @@ has here
   returns an error, and adds one to its launch count;
 * a plain PyTorch version (``*_plain``) that repeats the kernel's arithmetic.
 
-A wrapper takes the plain version only for tensors that lie on the CPU (the
-tests, and the CPU path of the filter). For CUDA tensors it launches the
-kernel or raises; there is no fallback.
+A wrapper checks its inputs on either device and takes the plain version
+only for tensors that lie on the CPU (the tests, and the CPU path of the
+filter). For CUDA tensors it launches the kernel or raises; there is no
+fallback.
 
 The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
 shared library under ``msckf_tpu_torch/build/`` (one ``nvcc -c`` per source,
@@ -33,15 +34,17 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("gating.cu", "verification.cu", "p15_recurrence.cu", "propagate_block.cu")
+SOURCES = ("gating.cu", "verification.cu", "p15_recurrence.cu", "propagate_block.cu",
+           "triage.cu", "update_terms.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The verification kernel is built without multiply-add contraction, so it
-# rounds each product and sum as its plain version does and agrees with it
-# bitwise: its threshold decisions then cannot differ between the two.
-EXTRA_FLAGS = {"verification.cu": ("--fmad=false",)}
+# The verification and triage kernels are built without multiply-add
+# contraction, so they round each product and sum as their plain versions
+# do and agree with them bitwise: their threshold decisions then cannot
+# differ between the two.
+EXTRA_FLAGS = {"verification.cu": ("--fmad=false",), "triage.cu": ("--fmad=false",)}
 
 # launches of each kernel, counted by its wrapper where it launches
 LAUNCHES = {
@@ -49,6 +52,8 @@ LAUNCHES = {
     "verification_scores": 0,
     "p15_recurrence_fused": 0,
     "propagate_block_fused": 0,
+    "triage_refresh_fused": 0,
+    "update_terms_fused": 0,
 }
 
 
@@ -126,6 +131,7 @@ def build_kernels() -> Path:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 _SIGNATURES = {
     # S, r, gamma, U, n, stream
     "msckf_gating": (_P, _P, _P, _I, _I, _P),
@@ -137,6 +143,11 @@ _SIGNATURES = {
     # P15, | R, p, v, last_ts, prop_count, P15, Phi_acc, outR, outp, outv,
     # outsig, B, stream
     "msckf_propagate_block": (_P,) * 25 + (_I, _P),
+    # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, stream
+    "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I, _I, _P),
+    # H, Hf, r, P, crit, sel_ok, | Ht, rt (scratch), A, c, passed, U, 2M, D,
+    # sigma2, eps, stream
+    "msckf_update_terms": (_P,) * 11 + (_I, _I, _I, _D, _D, _P),
 }
 
 
@@ -220,14 +231,14 @@ def batched_gating_gamma_plain(S: torch.Tensor, r: torch.Tensor, nb: int = GATIN
 
 def batched_gating_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     """S: (U, n, n) SPD systems (sigma^2-regularized), r: (U, n) -> (U,)."""
-    if S.device.type == "cpu":
-        return batched_gating_gamma_plain(S, r)
     dt = _float_dtype(S)
     U, n = S.shape[0], S.shape[-1]
-    if n > GATING_MAX_N:
-        raise ValueError(f"gating kernel takes n <= {GATING_MAX_N}, got {n}")
     _check(S, "S", (U, n, n), dt, S.device)
     _check(r, "r", (U, n), dt, S.device)
+    if S.device.type == "cpu":
+        return batched_gating_gamma_plain(S, r)
+    if n > GATING_MAX_N:
+        raise ValueError(f"gating kernel takes n <= {GATING_MAX_N}, got {n}")
     gamma = torch.empty(U, dtype=dt, device=S.device)
     if U == 0:
         return gamma
@@ -335,8 +346,6 @@ def verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv):
 def verification_scores(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     """R1 (F, M, 3, 3), t1 (F, M, 3), kp1 (F, M, 2), kp2 (F, 2), camR (3, 3),
     camt (3,), K and Kinv (3, 3) -> homo, epi, base, each (F, M)."""
-    if t1.device.type == "cpu":
-        return verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv)
     dt = _float_dtype(t1)
     F, M = t1.shape[0], t1.shape[1]
     dev = t1.device
@@ -348,6 +357,8 @@ def verification_scores(R1, t1, kp1, kp2, camR, camt, K, Kinv):
                            ("K", K, (3, 3)), ("Kinv", Kinv, (3, 3))):
         if tuple(x.shape) != shape or x.dtype != dt or x.device != dev:
             raise ValueError(f"{name}: expected {shape} {dt} on {dev}")
+    if dev.type == "cpu":
+        return verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv)
     consts = torch.cat([camR.reshape(9), camt, K.reshape(9), Kinv.reshape(9)])
     homo = torch.empty((F, M), dtype=dt, device=dev)
     epi = torch.empty_like(homo)
@@ -385,14 +396,14 @@ def p15_recurrence_fused_plain(P0, Phi, Qd):
 def p15_recurrence_fused(P0, Phi, Qd):
     """P0 (15, 15), Phi and Qd (B, 15, 15) -> P (15, 15), Phi_acc (15, 15),
     sigma diagonals (B, 6)."""
-    if P0.device.type == "cpu":
-        return p15_recurrence_fused_plain(P0, Phi, Qd)
     dt = _float_dtype(P0)
     B = Phi.shape[0]
     dev = P0.device
     _check(P0, "P0", (15, 15), dt, dev)
     _check(Phi, "Phi", (B, 15, 15), dt, dev)
     _check(Qd, "Qd", (B, 15, 15), dt, dev)
+    if dev.type == "cpu":
+        return p15_recurrence_fused_plain(P0, Phi, Qd)
     P = torch.empty((15, 15), dtype=dt, device=dev)
     acc = torch.empty_like(P)
     sig = torch.empty((B, 6), dtype=dt, device=dev)
@@ -516,9 +527,6 @@ def propagate_block_fused(R0, p0, v0, bg, ba, last_ts, prop_count,
     Returns (R, p, v, last_ts, prop_count, P15, Phi_acc, per-tick R (B,3,3),
     p (B,3), v (B,3), sigma diagonals (B,6)). ``prop_count`` is an int64
     scalar tensor, ``valid`` a bool (B,) tensor."""
-    if R0.device.type == "cpu":
-        return propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
-                                           ts, gyro, acc, valid, qc, gravity, P15)
     dt = _float_dtype(R0)
     dev = R0.device
     B = ts.shape[0]
@@ -531,6 +539,9 @@ def propagate_block_fused(R0, p0, v0, bg, ba, last_ts, prop_count,
         _check(x, name, shape, dt, dev)
     _check(prop_count, "prop_count", (), torch.int64, dev)
     _check(valid, "valid", (B,), torch.bool, dev)
+    if dev.type == "cpu":
+        return propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
+                                           ts, gyro, acc, valid, qc, gravity, P15)
     R = torch.empty((3, 3), dtype=dt, device=dev)
     p = torch.empty(3, dtype=dt, device=dev)
     v = torch.empty(3, dtype=dt, device=dev)
@@ -551,3 +562,210 @@ def propagate_block_fused(R0, p0, v0, bg, ba, last_ts, prop_count,
     )
     LAUNCHES["propagate_block_fused"] += 1
     return R, p, v, lts, pc, P15_out, acc_out, outR, outp, outv, outsig
+
+
+# --------------------------------------------------------------------------
+# 5. triage triangulation and refresh (replaces triage_refresh_fused,
+#    msckf_tpu/ops/pallas_kernels.py:930 -> _triage_kernel :771)
+# --------------------------------------------------------------------------
+
+
+def triage_refresh_fused_plain(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv,
+                               rcond, width, height):
+    """Weighted line intersection summed over the observations in order,
+    the trace-normalised Tikhonov 3x3 solve, the anchor in-front and
+    field-of-view test, and the refresh m = W_v / |W_v|, rho = 1 / z, with
+    the TPU kernel's floors (1e-30 on the direction norm, |z| and |W_v|;
+    1e-20 on the Gram scale; 1e-38 on |det|). Every divisor is a tensor:
+    PyTorch on the GPU divides by a Python number as a multiplication by its
+    reciprocal, which the kernel does not."""
+    F, M = weights.shape
+    full = functools.partial(torch.full, (F,), dtype=weights.dtype, device=weights.device)
+    zero, one, three = full(0.0), full(1.0), full(3.0)
+    tiny = full(1e-30)
+    pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+    X = dict.fromkeys(pairs, zero)
+    y = [zero, zero, zero]
+    for m in range(M):
+        b = [line_base[:, m, i] for i in range(3)]
+        d = [line_dir[:, m, i] for i in range(3)]
+        w = weights[:, m]
+        n = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+        n = torch.where(n < 1e-30, tiny, n)
+        dn = [d[i] / n for i in range(3)]
+        for i, j in pairs:
+            X[(i, j)] = X[(i, j)] + w * ((one if i == j else zero) - dn[i] * dn[j])
+        db = dn[0] * b[0] + dn[1] * b[1] + dn[2] * b[2]
+        y = [y[i] + w * (b[i] - dn[i] * db) for i in range(3)]
+
+    scale = (X[(0, 0)] + X[(1, 1)] + X[(2, 2)]) / three
+    scale = torch.where(scale < 1e-20, full(1e-20), scale)
+    eps = full(3.0 * rcond)
+    a = X[(0, 0)] / scale + eps
+    b = X[(0, 1)] / scale
+    c = X[(0, 2)] / scale
+    d = X[(1, 1)] / scale + eps
+    e = X[(1, 2)] / scale
+    f = X[(2, 2)] / scale + eps
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = c * b - a * e
+    co22 = a * d - b * b
+    det = a * co00 + b * co01 + c * co02
+    det = torch.where(det.abs() < 1e-38, full(1e-38), det)
+    inv_det = one / (det * scale)
+    Wp = [
+        (co00 * y[0] + co01 * y[1] + co02 * y[2]) * inv_det,
+        (co01 * y[0] + co11 * y[1] + co12 * y[2]) * inv_det,
+        (co02 * y[0] + co12 * y[1] + co22 * y[2]) * inv_det,
+    ]
+
+    R = [anchor_R[:, i, j] for i in range(3) for j in range(3)]
+    dx, dy, dz = (Wp[i] - anchor_t[:, i] for i in range(3))
+    Ci = [R[i] * dx + R[3 + i] * dy + R[6 + i] * dz for i in range(3)]
+    z = torch.where(Ci[2].abs() < 1e-30, tiny, Ci[2])
+    u = (K[0, 0] * Ci[0] + K[0, 1] * Ci[1] + K[0, 2] * Ci[2]) / z
+    v = (K[1, 0] * Ci[0] + K[1, 1] * Ci[1] + K[1, 2] * Ci[2]) / z
+    ok = (Ci[2] > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
+
+    cam = [Kinv[i, 0] * u + Kinv[i, 1] * v + Kinv[i, 2] for i in range(3)]
+    Wv = [R[3 * i] * cam[0] + R[3 * i + 1] * cam[1] + R[3 * i + 2] * cam[2] for i in range(3)]
+    nrm = torch.sqrt(Wv[0] * Wv[0] + Wv[1] * Wv[1] + Wv[2] * Wv[2])
+    nrm = torch.where(nrm < 1e-30, tiny, nrm)
+    m_new = torch.stack([Wv[i] / nrm for i in range(3)], dim=-1)
+    return m_new, one / z, ok
+
+
+def triage_refresh_fused(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv,
+                         rcond, width, height):
+    """line_base, line_dir (F, M, 3), weights (F, M) (zero where an
+    observation is invalid), anchor_R (F, 3, 3), anchor_t (F, 3), K and
+    Kinv (3, 3) -> refreshed bearing m (F, 3), inverse depth rho (F,), and
+    ok (F,) bool: the point lies in front of the anchor camera and inside
+    its image."""
+    dt = _float_dtype(weights)
+    F, M = weights.shape
+    dev = weights.device
+    for name, x, shape in (
+        ("line_base", line_base, (F, M, 3)), ("line_dir", line_dir, (F, M, 3)),
+        ("weights", weights, (F, M)), ("anchor_R", anchor_R, (F, 3, 3)),
+        ("anchor_t", anchor_t, (F, 3)), ("K", K, (3, 3)), ("Kinv", Kinv, (3, 3)),
+    ):
+        _check(x, name, shape, dt, dev)
+    if dev.type == "cpu":
+        return triage_refresh_fused_plain(line_base, line_dir, weights, anchor_R, anchor_t,
+                                          K, Kinv, rcond, width, height)
+    m = torch.empty((F, 3), dtype=dt, device=dev)
+    rho = torch.empty(F, dtype=dt, device=dev)
+    ok = torch.empty(F, dtype=torch.bool, device=dev)
+    if F * M == 0:
+        return m, rho, ok
+    _launch("msckf_triage", dt,
+            *(t.data_ptr() for t in (line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv)),
+            3.0 * rcond, float(width), float(height),
+            m.data_ptr(), rho.data_ptr(), ok.data_ptr(), F, M)
+    LAUNCHES["triage_refresh_fused"] += 1
+    return m, rho, ok
+
+
+# --------------------------------------------------------------------------
+# 6. fused update terms (replaces update_terms_fused,
+#    msckf_tpu/ops/pallas_kernels.py:560 -> _update_terms_kernel :303)
+# --------------------------------------------------------------------------
+
+
+def update_terms_gamma_plain(H, Hf, r, P, sigma2, rcond):
+    """The per-track half of ``update_terms_fused_plain``: the projector
+    Pi = I - Hf W Hf^T (W the closed-form trace-normalised Tikhonov inverse
+    of Hf^T Hf, with the TPU kernel's floors 1e-20 and 1e-38) applied to r
+    and H, S = H~ P H~^T + sigma^2 I, and gamma = r~^T S^-1 r~ by the gating
+    kernel's pivot-row Cholesky. Returns (H~, r~, gamma)."""
+    R2 = H.shape[1]
+    dt, dev = H.dtype, H.device
+
+    def gram(i, j):
+        return torch.sum(Hf[:, :, i] * Hf[:, :, j], dim=1)
+
+    g00, g01, g02 = gram(0, 0), gram(0, 1), gram(0, 2)
+    g11, g12, g22 = gram(1, 1), gram(1, 2), gram(2, 2)
+    scale = (g00 + g11 + g22) / torch.full_like(g00, 3.0)
+    scale = torch.where(scale < 1e-20, torch.full_like(scale, 1e-20), scale)
+    eps = torch.full_like(scale, 3.0 * rcond)
+    a, b, c = g00 / scale + eps, g01 / scale, g02 / scale
+    d, e, f = g11 / scale + eps, g12 / scale, g22 / scale + eps
+    co00 = d * f - e * e
+    co01 = c * e - b * f
+    co02 = b * e - c * d
+    co11 = a * f - c * c
+    co12 = c * b - a * e
+    co22 = a * d - b * b
+    det = a * co00 + b * co01 + c * co02
+    det = torch.where(det.abs() < 1e-38, torch.full_like(det, 1e-38), det)
+    inv_det = torch.ones_like(det) / (det * scale)
+    W = torch.stack([
+        torch.stack([co00, co01, co02], dim=-1),
+        torch.stack([co01, co11, co12], dim=-1),
+        torch.stack([co02, co12, co22], dim=-1),
+    ], dim=-2) * inv_det[:, None, None]  # (U, 3, 3)
+
+    w = torch.einsum("uij,uj->ui", W, torch.einsum("uri,ur->ui", Hf, r))
+    r_t = r - torch.einsum("uri,ui->ur", Hf, w)
+    C = torch.einsum("uij,ujd->uid", W, torch.einsum("uri,urd->uid", Hf, H))
+    H_t = H - torch.einsum("uri,uid->urd", Hf, C)
+    S = (H_t @ P) @ H_t.transpose(1, 2) + sigma2 * torch.eye(R2, dtype=dt, device=dev)
+    return H_t, r_t, batched_gating_gamma_plain(S, r_t)
+
+
+def update_terms_masked_plain(H_t, r_t, passed):
+    """A = sum H~^T H~ and c = sum H~^T r~ over the passed tracks, their
+    rows selected (not multiplied), so that an inf row of a rejected track
+    adds exact zeros."""
+    zero = torch.zeros((), dtype=H_t.dtype, device=H_t.device)
+    H_w = torch.where(passed[:, None, None], H_t, zero)
+    r_w = torch.where(passed[:, None], r_t, zero)
+    return torch.einsum("urd,ure->de", H_w, H_w), torch.einsum("urd,ur->d", H_w, r_w)
+
+
+def update_terms_fused_plain(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
+    """The projector, S and gamma per track; passed = sel_ok &
+    (gamma <= crit), where a NaN crit or gamma fails; then the masked
+    A and c."""
+    H_t, r_t, gamma = update_terms_gamma_plain(H, Hf, r, P, sigma2, rcond)
+    passed = sel_ok & (gamma <= crit)
+    A, c = update_terms_masked_plain(H_t, r_t, passed)
+    return A, c, passed
+
+
+def update_terms_fused(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
+    """H (U, 2M, D), Hf (U, 2M, 3), r (U, 2M), P (D, D), crit (U,) with NaN
+    for a track that must fail, sel_ok (U,) bool -> A (D, D), c (D,),
+    passed (U,) bool. One call is two launches (per-track terms and gate,
+    then the masked accumulation), counted as one."""
+    dt = _float_dtype(H)
+    U, R2, D = H.shape
+    dev = H.device
+    _check(H, "H", (U, R2, D), dt, dev)
+    _check(Hf, "Hf", (U, R2, 3), dt, dev)
+    _check(r, "r", (U, R2), dt, dev)
+    _check(P, "P", (D, D), dt, dev)
+    _check(crit, "crit", (U,), dt, dev)
+    _check(sel_ok, "sel_ok", (U,), torch.bool, dev)
+    if dev.type == "cpu":
+        return update_terms_fused_plain(H, Hf, r, P, crit, sel_ok, sigma2, rcond)
+    if R2 > GATING_MAX_N:
+        raise ValueError(f"update-terms kernel takes 2M <= {GATING_MAX_N}, got {R2}")
+    if U * R2 == 0:
+        return (torch.zeros((D, D), dtype=dt, device=dev), torch.zeros(D, dtype=dt, device=dev),
+                torch.zeros(U, dtype=torch.bool, device=dev))
+    Ht = torch.empty((U, R2, D), dtype=dt, device=dev)
+    rt = torch.empty((U, R2), dtype=dt, device=dev)
+    A = torch.empty((D, D), dtype=dt, device=dev)
+    c = torch.empty(D, dtype=dt, device=dev)
+    passed = torch.empty(U, dtype=torch.bool, device=dev)
+    _launch("msckf_update_terms", dt,
+            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed)),
+            U, R2, D, float(sigma2), 3.0 * float(rcond))
+    LAUNCHES["update_terms_fused"] += 1
+    return A, c, passed

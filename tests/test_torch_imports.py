@@ -94,8 +94,8 @@ def test_entry_points_raise_without_gpu(monkeypatch, small):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"use_pallas_triage": True},
-    {"update_kernel": "fused"},
+    {"gain_solver": "ns"},
+    {"triangulation": "gn", "use_pallas_triage": True},
     {"gating_solver": "ns"},
     {"gain_solver": "chol"},
     {"correction_dtype": "compensated"},

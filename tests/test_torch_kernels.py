@@ -179,3 +179,76 @@ def test_propagate_block_plain_matches_pallas(B, prop_count, pad):
         _close(g.numpy(), np.asarray(w))
     assert float(glts) == float(meta[0, 0])
     assert int(gpc) == int(meta[0, 1]) == prop_count + B - pad
+
+
+def _triage_inputs(rng, F, M):
+    """Consistent geometry as in tests/test_triage_fused.py: each track's
+    point is seen along noisy lines from M camera centres, the first of
+    them the anchor, whose rotation is near the identity so that most
+    points project into the 640 x 480 image. Track 1 lies behind its
+    anchor, track 2 outside the image, and track 3 has all weights zero."""
+    t_a = rng.normal(size=(F, 3))
+    R_a = Rotation.from_rotvec(rng.normal(size=(F, 3)) * 0.1).as_matrix()
+    Ci = np.concatenate([rng.uniform(-1.0, 1.0, size=(F, 2)), rng.uniform(3, 8, (F, 1))], 1)
+    Ci[1] = [0.1, 0.1, -5.0]
+    Ci[2] = [15.0, 0.0, 5.0]
+    wp = t_a + np.einsum("fij,fj->fi", R_a, Ci)
+    bases = t_a[:, None, :] + rng.normal(size=(F, M, 3))
+    bases[:, 0] = t_a
+    dirs = wp[:, None, :] - bases + rng.normal(size=(F, M, 3)) * 0.01
+    weights = np.where(rng.random((F, M)) > 0.2, rng.uniform(0.5, 1.0, (F, M)), 0.0)
+    weights[:, 0] = rng.uniform(0.5, 1.0, F)
+    weights[3] = 0.0
+    K_ = np.array([[180.0, 0, 320], [0, 180, 240], [0, 0, 1]])
+    return bases, dirs, weights, R_a, t_a, K_, np.linalg.inv(K_)
+
+
+@pytest.mark.parametrize("F,M", [(10, 6), (64, 32), (33, 8)])
+def test_triage_plain_matches_pallas(F, M):
+    rng = np.random.default_rng(F * 100 + M)
+    args = _triage_inputs(rng, F, M)
+    rcond = 1e-12
+    want = pk.triage_refresh_fused(*map(jnp.asarray, args), rcond, 640, 480, interpret=True)
+    got = K.triage_refresh_fused(*map(_t, args), rcond, 640, 480)
+    ok = got[2].numpy()
+    np.testing.assert_array_equal(ok, np.asarray(want[2]))
+    assert not ok[1] and not ok[2] and ok.sum() > F // 2
+    _close(got[0].numpy(), np.asarray(want[0]))
+    _close(got[1].numpy(), np.asarray(want[1]))
+
+
+def _update_terms_inputs(rng, U, R2=12, D=27):
+    """tests/test_update_terms_fused.py's inputs in float64, with rows
+    beyond 8 zero (padding observations), mixed thresholds (track 1 fails),
+    a NaN threshold (track 2), an unused row (track U - 1, sel_ok False),
+    and an inf Jacobian entry in track 3, which must fail the gate and add
+    nothing to A and c."""
+    Hf = rng.normal(size=(U, R2, 3))
+    H = rng.normal(size=(U, R2, D)) * 0.5
+    r = rng.normal(size=(U, R2)) * 0.1
+    Hf[:, 8:] = 0.0
+    H[:, 8:] = 0.0
+    r[:, 8:] = 0.0
+    H[3, 2, 5] = np.inf
+    Pm = rng.normal(size=(D, D)) * 0.05
+    crit = np.full(U, 50.0)
+    crit[1] = 1e-6
+    crit[2] = np.nan
+    sel_ok = np.ones(U, bool)
+    sel_ok[U - 1] = False
+    return H, Hf, r, Pm @ Pm.T, crit, sel_ok
+
+
+@pytest.mark.parametrize("U", [6, 13])
+def test_update_terms_plain_matches_pallas(U):
+    rng = np.random.default_rng(U)
+    args = _update_terms_inputs(rng, U)
+    sigma2, rcond = 0.01, 1e-12
+    A_w, c_w, p_w = pk.update_terms_fused(*map(jnp.asarray, args), sigma2, rcond,
+                                          interpret=True)
+    A, c, passed = K.update_terms_fused(*map(_t, args), sigma2, rcond)
+    np.testing.assert_array_equal(passed.numpy(), np.asarray(p_w))
+    assert not passed[[1, 2, 3, U - 1]].any() and passed.sum() >= U - 5
+    assert np.isfinite(A.numpy()).all() and np.isfinite(c.numpy()).all()
+    _close(A.numpy(), np.asarray(A_w))
+    _close(c.numpy(), np.asarray(c_w))

@@ -35,6 +35,7 @@ from msckf_tpu_torch.filter.propagation import propagate_block
 from msckf_tpu_torch.filter.tracks import select_rows
 from msckf_tpu_torch.filter.update import build_update_terms, triage_features
 from msckf_tpu_torch.filter.verification import verify_matches
+from msckf_tpu_torch.ops import kernels as K
 
 CAPS = dict(dtype="float64", f_max=256, u_max=16, k_max=128, m_max=8, n_cam_slots=8,
             max_camera_states=6, desc_dim=10, use_pallas_triage=False)
@@ -249,7 +250,8 @@ def test_update_terms_mask_kc_of_rejected_tracks(mid, pre_update, interpret_lane
     valid = torch.zeros_like(tri.valid)
     valid[idx] = True
     f0 = int(idx[0])
-    d = mt.state_to_numpy(s)
+    # a copy: the arrays of state_to_numpy share memory with the fixture's tensors
+    d = {k: v.copy() for k, v in mt.state_to_numpy(s).items()}
     # every observation of f0 from a camera in a free slot, with an identity
     # rotation and an id no other track observes, and a point at
     # (1e150, 0, 0) in that camera: z = 0. The other tracks are untouched.
@@ -275,3 +277,55 @@ def test_update_terms_mask_kc_of_rejected_tracks(mid, pre_update, interpret_lane
     assert np.isfinite(np.asarray(ref.A)).all()
     _close(got.A.numpy(), np.asarray(ref.A))
     _close(got.c.numpy(), np.asarray(ref.c))
+
+
+# --- the triage and update-terms kernels, and the batched-Cholesky gate --
+
+
+def test_triage_kernel_matches_jax(mid, pre_update, interpret_lane, monkeypatch):
+    """``use_pallas_triage=True`` (the default): the triage kernel's plain
+    version in the port, the Pallas kernel in interpret mode in the JAX
+    package, on the same state."""
+    s, _ = pre_update
+    caps = {**CAPS, "use_pallas_triage": True}
+    cfg, jcfg = mt.reference_experiment_config(**caps), jax_config(**caps)
+    calls = []
+    plain = K.triage_refresh_fused_plain
+    monkeypatch.setattr(K, "triage_refresh_fused_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    tri = triage_features(cfg, s, s.tracks.valid)
+    js = jax_state_from_numpy(jcfg, mt.state_to_numpy(s))
+    want = jax.jit(lambda st, sub: jax_triage_features(jcfg, st, sub))(
+        js, jnp.asarray(s.tracks.valid.numpy()))
+    assert len(calls) == 1
+    np.testing.assert_array_equal(tri.valid.numpy(), np.asarray(want.valid))
+    np.testing.assert_array_equal(tri.lost.numpy(), np.asarray(want.lost))
+    assert int(tri.valid.sum()) > 0
+    assert bool((tri.tracks.idp_rho != s.tracks.idp_rho).any())  # some tracks refreshed
+    _close(tri.tracks.idp_m.numpy(), np.asarray(want.tracks.idp_m))
+    _close(tri.tracks.idp_rho.numpy(), np.asarray(want.tracks.idp_rho))
+
+
+@pytest.mark.parametrize("which", ["triage-valid", "all-tracks"])
+@pytest.mark.parametrize("overrides", [
+    {"update_kernel": "fused"}, {"update_kernel": "xla"}, {"gating_solver": "xla"},
+], ids=["fused", "xla", "xla-gate"])
+def test_build_update_terms_variants_match_jax(mid, pre_update, interpret_lane, overrides,
+                                               which):
+    """The fused update-terms kernel (its plain version against the Pallas
+    kernel in interpret mode) and the hybrid terms with the batched-Cholesky
+    gate, on the masks of test_build_update_terms_matches_jax."""
+    s, tri = pre_update
+    s = s.replace(tracks=tri.tracks)
+    caps = {**CAPS, **overrides}
+    cfg, jcfg = mt.reference_experiment_config(**caps), jax_config(**caps)
+    valid = tri.valid if which == "triage-valid" else s.tracks.valid
+    got = build_update_terms(cfg, s, valid)
+    want = _jax_terms(jcfg, mt.state_to_numpy(s), valid.numpy())
+    assert int(got.n_gate_rejected) == int(want.n_gate_rejected)
+    assert int(got.n_overflow) == int(want.n_overflow)
+    assert bool(got.any_pass) == bool(want.any_pass)
+    if which == "all-tracks":
+        assert int(got.n_overflow) > 0 and int(got.n_gate_rejected) > 0
+    _close(got.A.numpy(), np.asarray(want.A))
+    _close(got.c.numpy(), np.asarray(want.c))
