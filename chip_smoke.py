@@ -13,12 +13,17 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               inputs: equal gate/verification/triage decisions, floats
               within the stated tolerances; CUDA-event times of kernel,
               plain version and (gating) a library yardstick; the bound for
-              each.
+              each. Then each kernel's batched form (its vmap rule's one
+              launch for B = 32 sequences; B = 4 for the update terms in
+              float64): bitwise equal to B single launches, within the same
+              tolerances of the plain version over the batch axis; its
+              times and bound.
 3. parity   — the test capacities in float64, 600 ticks of the circle, on
               the card and on the CPU, in the default configuration, with
               update_kernel="fused" and with the plain triage
               (use_pallas_triage=False): equal counters and per-tick counts,
-              matching trajectories.
+              matching trajectories; the same for batched_run_sequence over
+              two seeds (default dispatch).
 4. main     — the default configuration (float32 filter, float64
               correction island, triage kernel, hybrid update with the
               gating kernel) at the reference capacities over the whole
@@ -32,6 +37,14 @@ Phases (each one raises, and the script exits non-zero, on any failure):
    driven run, then two more in turns.
 7. xla      — a short run with update_kernel="xla" (the batched-Cholesky
               gate): launches, and no synchronizing call beyond the loop's.
+8. batched  — batched_run_sequence over 32 seeds of the circle at the
+              reference capacities in float32, the whole circle, in the
+              default dispatch and with update_kernel="fused", then 400
+              ticks with dispatch_auto=False (the triage and gating
+              kernels): every sequence within 0.2 m, no overflow, one launch
+              per call site and frame (not one per sequence), no functorch
+              fallback to a per-sequence loop, no host sync; aggregate
+              frames/s in turns with the single default loop; a profile.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -80,7 +93,8 @@ def update_terms_flops(U: int, R2: int, D: int) -> float:
 
 TOL = {"float32": 1e-4, "float64": 1e-10}
 
-PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla")
+PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched")
+BATCH = 32  # sequences of the batched phase and the batched kernel checks
 DEVICE = "cuda"
 
 
@@ -186,6 +200,38 @@ def bound_ms(nbytes: float, flops: float, dtype: str, peaks=PEAK_FLOPS):
     t_bytes = nbytes / PEAK_BYTES
     t_ops = flops / peaks[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_bound(name: str, dims, dtype: str, B: int = 1):
+    """(bound ms, what bounds it) of one call on B sequences, from the
+    shapes: each input read once, each output written once, the operations
+    counted from the kernel's source."""
+    sz = 4 if dtype == "float32" else 8
+    peaks = PEAK_FLOPS
+    if name == "batched_gating_gamma":
+        U, n = dims
+        nbytes, flops = (U * n * n + U * n + U) * sz, U * (n**3 / 3 + n**2 + 2 * n)
+    elif name == "verification_scores":
+        F, M = dims
+        nbytes = (F * M * (9 + 3 + 2 + 3) + F * 2 + 30) * sz
+        flops = F * M * VERIFICATION_FLOPS_PER_PAIR
+    elif name == "p15_recurrence_fused":
+        (nt,) = dims
+        nbytes, flops = (225 + 2 * nt * 225 + 2 * 225 + 6 * nt) * sz, nt * P15_FLOPS_PER_TICK
+    elif name == "propagate_block_fused":
+        (nt,) = dims
+        nbytes = ((9 + 4 * 3 + 1 + 12 + 3 + 225) + nt * 7) * sz + nt + 8 \
+            + ((9 + 3 + 3 + 1 + 225 + 225) + nt * 21) * sz + 8
+        flops = nt * PROPAGATE_FLOPS_PER_TICK
+    elif name == "triage_refresh_fused":
+        F, M = dims
+        nbytes = (F * M * 7 + F * 12 + 18 + F * 4) * sz + F
+        flops = F * M * TRIAGE_FLOPS_PER_OBS + F * TRIAGE_FLOPS_PER_TRACK
+    else:
+        U, n2, D = dims
+        nbytes = (U * n2 * (D + 4) + 2 * D * D + D + U) * sz + 2 * U
+        flops, peaks = update_terms_flops(U, n2, D), PEAK_FLOPS_MATMUL
+    return bound_ms(B * nbytes, B * flops, dtype, peaks)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +381,6 @@ def phase_kernels(torch, K, cfg, rng):
     for dtype_name in ("float32", "float64"):
         dtype = getattr(torch, dtype_name)
         tol = TOL[dtype_name]
-        sz = torch.finfo(dtype).bits // 8
         (gating, verification, p15, propagate, propagate_checks, triage,
          update) = kernel_inputs(torch, dtype, rng, cfg)
         log(f"-- kernels, {dtype_name} (tolerance rtol {tol})")
@@ -360,7 +405,7 @@ def phase_kernels(torch, K, cfg, rng):
             return torch.sum(r * sol, dim=-1)
 
         lib = time_ms(torch, library)
-        bms, bby = bound_ms((U * n * n + U * n + U) * sz, U * (n**3 / 3 + n**2 + 2 * n), dtype_name)
+        bms, bby = kernel_bound("batched_gating_gamma", (U, n), dtype_name)
         log(f"gating        U={U} n={n}: max abs {ea:.3e} rel {er:.3e}; {n_pass}/{U} pass "
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, cholesky_ex+cholesky_solve {lib:.4f} ms, bound {bms:.6f} ms ({bby})")
@@ -387,8 +432,7 @@ def phase_kernels(torch, K, cfg, rng):
         dev_ms = kernel_only_ms(torch, lambda: K.verification_scores(*verification),
                                 "verification_kernel")
         plain = time_ms(torch, lambda: K.verification_scores_plain(*verification))
-        nbytes = (F * M * (9 + 3 + 2 + 3) + F * 2 + 30) * sz
-        bms, bby = bound_ms(nbytes, F * M * VERIFICATION_FLOPS_PER_PAIR, dtype_name)
+        bms, bby = kernel_bound("verification_scores", (F, M), dtype_name)
         log(f"verification  F={F} M={M}: max abs {ea:.3e} rel {er:.3e}; "
             f"{int(dk.sum())} rejections, {int(short.sum())} short baselines "
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
@@ -407,8 +451,7 @@ def phase_kernels(torch, K, cfg, rng):
         ms = time_ms(torch, lambda: K.p15_recurrence_fused(*p15))
         dev_ms = kernel_only_ms(torch, lambda: K.p15_recurrence_fused(*p15), "p15_kernel")
         plain = time_ms(torch, lambda: K.p15_recurrence_fused_plain(*p15))
-        nbytes = (225 + 2 * B * 225 + 2 * 225 + 6 * B) * sz
-        bms, bby = bound_ms(nbytes, B * P15_FLOPS_PER_TICK, dtype_name)
+        bms, bby = kernel_bound("p15_recurrence_fused", (B,), dtype_name)
         log(f"p15           B={B}: max abs {ea:.3e} rel {er:.3e}; kernel {ms:.4f} ms "
             f"(kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, bound {bms:.8f} ms ({bby})")
@@ -437,9 +480,7 @@ def phase_kernels(torch, K, cfg, rng):
         dev_ms = kernel_only_ms(torch, lambda: K.propagate_block_fused(*propagate),
                                 "propagate_kernel")
         plain = time_ms(torch, lambda: K.propagate_block_fused_plain(*propagate))
-        nbytes = ((9 + 4 * 3 + 1 + 12 + 3 + 225) + Bp * 7) * sz + Bp + 8 \
-            + ((9 + 3 + 3 + 1 + 225 + 225) + Bp * 21) * sz + 8
-        bms, bby = bound_ms(nbytes, Bp * PROPAGATE_FLOPS_PER_TICK, dtype_name)
+        bms, bby = kernel_bound("propagate_block_fused", (Bp,), dtype_name)
         log(f"propagate     B={Bp}: max abs {ea:.3e} rel {er:.3e} (also first step, padding "
             f"tick); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), plain {plain:.4f} ms, "
             f"bound {bms:.8f} ms ({bby})")
@@ -462,9 +503,7 @@ def phase_kernels(torch, K, cfg, rng):
         ms = time_ms(torch, lambda: K.triage_refresh_fused(*targs))
         dev_ms = kernel_only_ms(torch, lambda: K.triage_refresh_fused(*targs), "triage_kernel")
         plain = time_ms(torch, lambda: K.triage_refresh_fused_plain(*targs))
-        nbytes = (F * M * 7 + F * 12 + 18 + F * 4) * sz + F
-        bms, bby = bound_ms(nbytes, F * M * TRIAGE_FLOPS_PER_OBS + F * TRIAGE_FLOPS_PER_TRACK,
-                            dtype_name)
+        bms, bby = kernel_bound("triage_refresh_fused", (F, M), dtype_name)
         log(f"triage        F={F} M={M}: max abs {ea:.3e} rel {er:.3e}; {int(ok.sum())}/{F} ok "
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
@@ -504,9 +543,7 @@ def phase_kernels(torch, K, cfg, rng):
             f"{m} {_fmt_ms(kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), m))}"
             for m in launch_names)
         plain = time_ms(torch, lambda: K.update_terms_fused_plain(*uargs))
-        nbytes = (U * n2 * (D + 4) + 2 * D * D + D + U) * sz + 2 * U
-        bms, bby = bound_ms(nbytes, update_terms_flops(U, n2, D), dtype_name,
-                            PEAK_FLOPS_MATMUL)
+        bms, bby = kernel_bound("update_terms_fused", (U, n2, D), dtype_name)
         log(f"update terms  U={U} 2M={n2} D={D}: max abs {ea:.3e} rel {er:.3e}; "
             f"{int(p_k.sum())}/{U} pass, "
             + (f"decisions differ within tolerance of the threshold on {near}; " if near
@@ -515,6 +552,124 @@ def phase_kernels(torch, K, cfg, rng):
             f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
         log(_per_output(errs))
         rows["update_terms_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+        if dtype_name == "float32":
+            rows32 = dict(rows)
+    return rows32
+
+
+def same_bits(torch, a, b) -> bool:
+    """Bitwise equality, NaNs included."""
+    if a.dtype.is_floating_point:
+        iv = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.view(iv), b.view(iv))
+    return torch.equal(a, b)
+
+
+def phase_kernels_batched(torch, K, cfg, rng):
+    """Each kernel's batched form: its op under torch.func.vmap over BATCH
+    sequences of seeded inputs (BATCH draws of kernel_inputs), which the
+    op's vmap rule runs as one launch. Held bitwise against one single
+    launch per sequence and, within the kernel's tolerance, against the
+    plain version over the batch axis. Returns the float32 rows."""
+    from msckf_tpu_torch.ops.smallmat import default_rcond
+
+    rows = {}
+    for dtype_name in ("float32", "float64"):
+        dtype = getattr(torch, dtype_name)
+        tol = TOL[dtype_name]
+        draws = [kernel_inputs(torch, dtype, rng, cfg) for _ in range(BATCH)]
+
+        def stacked(i, n=BATCH):
+            return [torch.stack([d[i][j] for d in draws[:n]]) for j in range(len(draws[0][i]))]
+
+        rcond = default_rcond(dtype)
+        sigma2 = cfg.sigma_image**2
+        S, r, crit = stacked(0)
+        U, n = r.shape[1:]
+        F, M = draws[0][1][1].shape[:2]
+        H, Hf, ru, P, ucrit, sel_ok = stacked(6, BATCH if dtype_name == "float32" else 4)
+        Uu, n2, D = H.shape[1:]
+
+        def gating_plain(S, r):
+            return K.batched_gating_gamma_plain(S.flatten(0, 1), r.flatten(0, 1)).view(r.shape[:2])
+
+        def update_plain(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
+            # on the kernel's decisions, as the single check does (below)
+            return K.update_terms_masked_plain(*K.update_terms_gamma_plain(
+                H, Hf, r, P, sigma2, rcond)[:2], upd_passed)
+
+        cases = (
+            ("batched_gating_gamma", K.batched_gating_gamma, (S, r), (), gating_plain,
+             "gating_kernel", (U, n)),
+            ("verification_scores", K.verification_scores, stacked(1), (),
+             K.verification_scores_plain, "verification_kernel", (F, M)),
+            ("p15_recurrence_fused", K.p15_recurrence_fused, stacked(2), (),
+             K.p15_recurrence_fused_plain, "p15_kernel", (draws[0][2][1].shape[0],)),
+            ("propagate_block_fused", K.propagate_block_fused, stacked(3), (),
+             K.propagate_block_fused_plain, "propagate_kernel", (draws[0][3][7].shape[0],)),
+            ("triage_refresh_fused", K.triage_refresh_fused, stacked(5),
+             (rcond, cfg.width, cfg.height), K.triage_refresh_fused_plain, "triage_kernel",
+             (F, M)),
+            ("update_terms_fused", K.update_terms_fused, (H, Hf, ru, P, ucrit, sel_ok),
+             (sigma2, rcond), update_plain, ("update_track_kernel", "update_accumulate_kernel"),
+             (Uu, n2, D)),
+        )
+        log(f"-- batched kernels, {dtype_name} (tolerance rtol {tol}; update terms at "
+            f"B={H.shape[0]}, the others at B={BATCH})")
+        for name, op, tensors, scalars, plain, match, dims in cases:
+            Bn = tensors[0].shape[0]
+
+            def run():
+                return torch.func.vmap(lambda *a: op(*a, *scalars))(*tensors)
+
+            torch.cuda.synchronize()
+            K.reset_launches()
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message=".*batching rule.*")
+                out = run()
+            torch.cuda.synchronize()
+            check(K.LAUNCHES[name] == 1,
+                  f"{name} batched: {K.LAUNCHES[name]} launches for one batched call")
+            out = out if isinstance(out, tuple) else (out,)
+            for b in range(Bn):
+                one = op(*(x[b] for x in tensors), *scalars)
+                one = one if isinstance(one, tuple) else (one,)
+                check(all(same_bits(torch, o[b], w) for o, w in zip(out, one)),
+                      f"{name} batched: sequence {b} differs from its single launch")
+            if name == "update_terms_fused":
+                upd_passed = out[2]
+            want = plain(*tensors, *scalars)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = {}
+            for i, (o, w) in enumerate(zip(out, want)):
+                if o.dtype == torch.bool:
+                    check(torch.equal(o, w), f"{name} batched: decisions differ from plain")
+                elif o.dtype.is_floating_point:
+                    errs[i] = assert_close(f"{name} batched output {i}", o, w, tol, floor=True)
+            if name == "batched_gating_gamma":
+                check(torch.equal(out[0] <= crit, want[0] <= crit),
+                      "gating batched: gate decisions differ from plain")
+            ea, er = _worst(errs)
+            ms = time_ms(torch, run)
+            dev_ms = kernel_only_ms(torch, run, match)
+            plain_ms = time_ms(torch, lambda: plain(*tensors, *scalars))
+            bms, bby = kernel_bound(name, dims, dtype_name, Bn)
+            lib = None
+            if name == "batched_gating_gamma":  # the single check's yardstick, all systems
+                Sf, rf = S.flatten(0, 1), r.flatten(0, 1)
+
+                def library():
+                    L, _ = torch.linalg.cholesky_ex(Sf)
+                    return torch.sum(rf * torch.cholesky_solve(rf[..., None], L)[..., 0], dim=-1)
+
+                lib = time_ms(torch, library)
+            log(f"{name:22s} batched B={Bn}: bitwise equal to {Bn} single launches; max abs "
+                f"{ea:.3e} rel {er:.3e} vs plain; call {ms:.4f} ms (kernel only "
+                f"{_fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+                + (f"cholesky_ex+cholesky_solve {lib:.4f} ms, " if lib is not None else "")
+                + f"bound {bms:.6f} ms ({bby})")
+            rows[name] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain_ms, bound=bms, by=bby,
+                              lib=lib, B=Bn)
         if dtype_name == "float32":
             rows32 = dict(rows)
     return rows32
@@ -552,7 +707,7 @@ def path_kernels(cfg) -> set:
         names.add("triage_refresh_fused")
     if cfg.update_kernel == "fused":
         names.add("update_terms_fused")
-    elif cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
+    elif cfg.update_kernel == "hybrid" and cfg.gating_solver not in ("xla", "ns"):
         names.add("batched_gating_gamma")
     return names
 
@@ -685,7 +840,7 @@ def sync_check(torch, run, stats, label):
             n_port += "msckf_tpu_torch" in Path(w.filename).parts
     check(n_port == stats.host_syncs - before,
           f"{label}: {n_port} synchronizing calls in the port, the loop counts "
-          f"{stats.host_syncs - before}")
+          f"{stats.host_syncs - before}; by site {sites}")
     return dict(sorted(sites.items(), key=lambda kv: -kv[1]))
 
 
@@ -719,7 +874,8 @@ def phase_main(torch, pkg, K, seq):
     log(f"main: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
         f"loop's count: {syncs} over the driven run's {frames} frames); PyTorch sync-debug "
         f"warnings over one run: {sum(sites.values())}, by site {sites}")
-    profile_window(torch, pkg, cfg, seq)
+    std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * 20)
+    profile_window(torch, prof_run, std.frames["imu_ts"].shape[0], "main")
     return run, C, launches, first_s
 
 
@@ -771,15 +927,184 @@ def phase_xla(torch, pkg, K, seq):
         f"{sum(sites.values())}, by site {sites} (the port's equal the loop's count)")
 
 
-def profile_window(torch, pkg, cfg, seq, n_frames: int = 20):
-    """Device busy share and the largest device-time items over the first
-    ``n_frames`` camera frames of the main configuration (torch.profiler;
-    a warm-up run first)."""
+def _seq(out, b):
+    """Sequence b of a batched TickOutput."""
+    return type(out)(*(x[b] for x in out))
+
+
+def phase_parity_batched(torch, pkg, K):
+    """batched_run_sequence over two seeds, 600 ticks in float64 at the
+    parity capacities, on the card and on the CPU, default dispatch: the
+    checks of phase_parity for each sequence."""
+    from msckf_tpu_torch.data.stream import to_device
+
+    cfg = pkg.reference_experiment_config(dtype="float64", f_max=512, u_max=64, k_max=512)
+    T, seeds = 600, (0, 1)
+    st = pkg.circle_streams(cfg, seeds, max_ticks=T)
+    res = {}
+    for dev in (DEVICE, "cpu"):
+        std = to_device(st, cfg, device=dev)
+        states = pkg.batched_initial_state(cfg, len(seeds), std.R_init, device=dev)
+        K.reset_launches()
+        t0 = time.perf_counter()
+        final, pre, fr = pkg.batched_run_sequence(cfg, states, std.prefix, std.frames,
+                                                  assume_camera=True, device=dev)
+        torch.cuda.synchronize()
+        res[dev] = (final, pre, fr, time.perf_counter() - t0)
+        if dev == DEVICE:
+            card_launches = K.launch_counts()
+    for k in path_kernels(pkg.batched_dispatch(cfg)):
+        check(card_launches[k] > 0, f"batched parity: kernel {k} not launched on the card")
+    (fg, pg, rg, tg), (fc, pc, rc, tc) = res[DEVICE], res["cpu"]
+    worst = dict.fromkeys(("p_WI", "v_WI", "R_WI", "sigma"), 0.0)
+    counters = []
+    for b in range(len(seeds)):
+        pgb, rgb, pcb, rcb = _seq(pg, b), _seq(rg, b), _seq(pc, b), _seq(rc, b)
+        for name in ("n_cams", "n_tracks"):
+            check(np.array_equal(_flat(pgb, rgb, name), _flat(pcb, rcb, name)),
+                  f"batched parity: sequence {b}: {name} differ")
+        cb = {}
+        for k in ("n_homography_rejected", "n_epipolar_rejected", "n_gating_rejected",
+                  "n_track_overflow", "n_update_overflow"):
+            a, c = int(getattr(fg.diag, k)[b]), int(getattr(fc.diag, k)[b])
+            check(a == c, f"batched parity: sequence {b}: {k} differs ({a} vs {c})")
+            cb[k] = a
+        counters.append(cb)
+        for name in ("p_WI", "v_WI", "R_WI"):
+            d = float(np.abs(_flat(pgb, rgb, name) - _flat(pcb, rcb, name)).max())
+            check(d <= 1e-7, f"batched parity: sequence {b}: {name} differs by {d}")
+            worst[name] = max(worst[name], d)
+        for name in ("sigma_pos", "sigma_rot"):
+            a, c = _flat(pgb, rgb, name), _flat(pcb, rcb, name)
+            check(np.allclose(a, c, rtol=1e-4, atol=1e-16),
+                  f"batched parity: sequence {b}: {name} differs")
+            worst["sigma"] = max(worst["sigma"],
+                                 float((np.abs(a - c) / np.maximum(np.abs(c), 1e-300)).max()))
+    log(f"parity batched: B={len(seeds)} seeds {seeds}, T={T} ticks, float64, default "
+        f"dispatch, card {tg:.2f} s vs CPU {tc:.2f} s; counters equal per sequence "
+        f"{counters}; max |dp| {worst['p_WI']:.2e}, |dv| {worst['v_WI']:.2e}, |dR| "
+        f"{worst['R_WI']:.2e}, sigma rel {worst['sigma']:.2e}")
+
+
+def predicted_batched_launches(K, cfg, C: int, B: int, Bp: int) -> dict:
+    """Launches over one batched run: each call site of the single loop
+    launches once per frame for the whole batch (never once per sequence).
+    Under vmap both branches of every cond run, so the prune's triage and
+    update run on every frame: the triage and the update kernels launch
+    twice per frame."""
+    pred = dict.fromkeys(K.LAUNCHES, 0)
+    for kind in (_block_kind(Bp), *[_block_kind(1), _block_kind(B - 1)] * C):
+        if kind != "scan":
+            pred[kind] += 1
+    pred["verification_scores"] = C
+    for name in ("triage_refresh_fused", "update_terms_fused", "batched_gating_gamma"):
+        if name in path_kernels(cfg):
+            pred[name] = 2 * C
+    return pred
+
+
+def phase_batched(torch, pkg, K, seq, single=None):
+    """BATCH seeds of the circle through batched_run_sequence at the
+    reference capacities in float32. ``single``: the main phase's driven
+    run and its frame count, timed in turns with the batched loop."""
+    from msckf_tpu_torch.data.stream import to_device
+
+    gt = seq.poses_t[len(seq.timestamps) - 1]  # the same trajectory for every seed
+    base = pkg.reference_experiment_config()
+    streams = {}
+
+    def make_run(cfg, max_ticks=None, dispatch_auto=True, stats=None):
+        if max_ticks not in streams:
+            streams[max_ticks] = to_device(
+                pkg.circle_streams(cfg, range(BATCH), max_ticks=max_ticks), cfg, DEVICE)
+        std = streams[max_ticks]
+        states = pkg.batched_initial_state(cfg, BATCH, std.R_init, device=DEVICE)
+        return std, lambda: pkg.batched_run_sequence(
+            cfg, states, std.prefix, std.frames, dispatch_auto=dispatch_auto,
+            assume_camera=True, device=DEVICE, stats=stats)
+
+    def drive_batched(label, cfg, max_ticks=None, dispatch_auto=True):
+        stats = pkg.FrameStats()
+        std, run = make_run(cfg, max_ticks, dispatch_auto, stats)
+        C, Bt = std.frames["imu_ts"].shape[1:3]
+        Bp = std.prefix["imu_ts"].shape[1]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        with warnings.catch_warnings():
+            # functorch warns where an op has no batching rule and it loops
+            # over the sequences instead
+            warnings.filterwarnings("error", message=".*batching rule.*")
+            t0 = time.perf_counter()
+            final, _, _ = run()
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        launches = K.launch_counts()
+        overflow = (final.diag.n_track_overflow + final.diag.n_update_overflow).cpu().numpy()
+        check(not overflow.any(), f"{label}: capacity overflow {overflow.tolist()}")
+        err_txt = ""
+        if max_ticks is None:
+            err = np.linalg.norm(final.imu.p_WI.double().cpu().numpy() - gt, axis=-1)
+            check(np.isfinite(err).all() and (err < 0.2).all(),
+                  f"{label}: final position errors {np.round(err, 4).tolist()} m, "
+                  f"not all under 0.2 m")
+            err_txt = (f"final errors {err.min():.4f} to {err.max():.4f} m (median "
+                       f"{np.median(err):.4f}), ")
+        dcfg = pkg.batched_dispatch(cfg) if dispatch_auto else cfg
+        predicted = predicted_batched_launches(K, dcfg, C, Bt, Bp)
+        for k in path_kernels(dcfg):
+            check(launches[k] > 0, f"{label}: kernel {k} never launched")
+        for k, v in launches.items():
+            check(v == predicted[k], f"{label}: {k} launched {v} times, one per call site "
+                                     f"and frame predicts {predicted[k]}")
+        check(stats.host_syncs == 0, f"{label}: {stats.host_syncs} host syncs")
+        log(f"{label}: B={BATCH} x {C} frames x {Bt} ticks (+{Bp}-tick prefix), "
+            f"{dcfg.dtype} filter, gating_solver={dcfg.gating_solver!r}, "
+            f"use_pallas_triage={dcfg.use_pallas_triage}, update_kernel={dcfg.update_kernel!r}; "
+            f"{err_txt}overflow 0, {seconds:.3f} s, {BATCH * C / seconds:.1f} aggregate "
+            f"frames/s; prunes per sequence {int(stats.prunes.min())} to "
+            f"{int(stats.prunes.max())}; 0 host syncs; launches "
+            f"{ {k: v for k, v in launches.items() if v} } (= one per call site and frame: "
+            f"{ {k: round(v / C, 3) for k, v in launches.items() if v} } per frame)")
+        return run, C, seconds, launches
+
+    run_b, C, first_s, launches = drive_batched("batched", base)
+    fused = drive_batched("batched fused", pkg.reference_experiment_config(update_kernel="fused"))
+    kernels = drive_batched("batched kernels", base, max_ticks=400, dispatch_auto=False)
+    launches["update_terms_fused"] = fused[3]["update_terms_fused"]
+    for name in ("triage_refresh_fused", "batched_gating_gamma"):
+        launches[name] = kernels[3][name]
+
+    stats = pkg.FrameStats()
+    _, sync_run = make_run(base, 400, stats=stats)
+    sites = sync_check(torch, sync_run, stats, "batched")
+    log(f"batched: sync check over 400 ticks: {stats.host_syncs} host syncs counted, "
+        f"PyTorch sync-debug warnings {sum(sites.values())}, by site {sites}")
+
+    if single is not None:
+        run_s, C_s, single_first = single
+        check(C_s == C, "batched: the single and batched circles differ in frames")
+        times = timed_runs(torch, {"batched": run_b, "single": run_s},
+                           ["single", "batched", "batched", "single"])
+        times["batched"].insert(0, first_s)
+        tb, ts = float(np.median(times["batched"])), float(np.median(times["single"]))
+        log(f"rates: batched B={BATCH}: {BATCH * C / tb:.1f} aggregate frames/s, "
+            f"{tb / C * 1e3:.3f} ms per frame of the batch (median of runs "
+            f"{[round(x, 4) for x in times['batched']]} s); single default loop in the same "
+            f"turns: {C / ts:.2f} frames/s, {ts / C * 1e3:.3f} ms/frame (runs "
+            f"{[round(x, 4) for x in times['single']]} s); batched frame / single frame "
+            f"{tb / ts:.3f}, aggregate / single frames/s {BATCH * ts / tb:.3f} (turns: "
+            f"driven batched run, then single, batched, batched, single)")
+    _, prof_run = make_run(base, 20 + 10 * 20)
+    profile_window(torch, prof_run, 20, "batched")
+    return launches
+
+
+def profile_window(torch, run, n_frames: int, label: str):
+    """Device busy share and the largest device-time items over one run of
+    ``n_frames`` camera frames (torch.profiler; a warm-up run first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    std, run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * n_frames)
-    C = std.frames["imu_ts"].shape[0]
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -790,16 +1115,17 @@ def profile_window(torch, pkg, cfg, seq, n_frames: int = 20):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.device_time_total for e in dev) / 1e3
     if busy_ms <= 0:
-        log("profile: the profiler recorded no device time; busy share not measured")
+        log(f"{label} profile: the profiler recorded no device time; busy share not measured")
         return
+    C = n_frames
     n_kernels = sum(e.count for e in dev)
-    top = sorted(dev, key=lambda e: -e.device_time_total)[:6]
-    log(f"profile: {C} frames, {wall_ms / C:.3f} ms/frame under the profiler, device busy "
-        f"{busy_ms / C:.3f} ms/frame ({busy_ms / wall_ms * 100:.1f}% busy, "
+    top = sorted(dev, key=lambda e: -e.device_time_total)[:8]
+    log(f"{label} profile: {C} frames, {wall_ms / C:.3f} ms/frame under the profiler, device "
+        f"busy {busy_ms / C:.3f} ms/frame ({busy_ms / wall_ms * 100:.1f}% busy, "
         f"{100 - busy_ms / wall_ms * 100:.1f}% idle), {n_kernels / C:.0f} device ops/frame")
     for e in top:
-        log(f"profile:   {e.device_time_total / 1e3 / C:.4f} ms/frame  {e.count / C:.1f}/frame  "
-            f"{e.key[:90]}")
+        log(f"{label} profile:   {e.device_time_total / 1e3 / C:.4f} ms/frame  "
+            f"{e.count / C:.1f}/frame  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -853,6 +1179,7 @@ def main(argv=None) -> int:
     if "kernels" in phases:
         phase("kernels")
         kernel_rows = phase_kernels(torch, K, cfg, np.random.default_rng(0))
+        batched_rows = phase_kernels_batched(torch, K, cfg, np.random.default_rng(1))
         K.reset_launches()  # the comparisons above are not the main path's launches
     seq = generate_circle_sequence(rng=np.random.default_rng(0), desc_dim=10)
     if "parity" in phases:
@@ -860,6 +1187,7 @@ def main(argv=None) -> int:
         phase_parity(torch, pkg, K, seq, "default")
         phase_parity(torch, pkg, K, seq, "fused", update_kernel="fused")
         phase_parity(torch, pkg, K, seq, "plain triage", use_pallas_triage=False)
+        phase_parity_batched(torch, pkg, K)
     # each kernel's launches come from the driven run of its path
     launches = dict.fromkeys(K.LAUNCHES)
     driven = {}
@@ -884,6 +1212,12 @@ def main(argv=None) -> int:
     if "xla" in phases:
         phase("xla")
         phase_xla(torch, pkg, K, seq)
+    batched_launches = dict.fromkeys(K.LAUNCHES)
+    if "batched" in phases:
+        check(kernel_rows is not None, "the batched phase needs the kernels phase")
+        phase("batched")
+        single = driven["default"][:2] + driven["default"][3:] if "default" in driven else None
+        batched_launches = phase_batched(torch, pkg, K, seq, single)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:
@@ -895,13 +1229,21 @@ def main(argv=None) -> int:
             "triage_refresh_fused": ("triage.cu", 771),
             "update_terms_fused": ("update_terms.cu", 303),
         }
-        line = {"kernels": [
-            {
-                "name": name,
+        # the batched forms: the JAX custom_vmap rules, and pallas_call's own
+        # batching rule for the P15 recurrence
+        batched_src = {
+            "batched_gating_gamma": 258, "verification_scores": 737,
+            "p15_recurrence_fused": 970, "propagate_block_fused": 1197,
+            "triage_refresh_fused": 911, "update_terms_fused": 544,
+        }
+
+        def entry(name, row, launched, line_no, label):
+            return {
+                "name": label,
                 "route": "cuda",
                 "source": f"msckf_tpu_torch/csrc/{src[name][0]}",
-                "replaces": f"msckf_tpu/ops/pallas_kernels.py:{src[name][1]}",
-                "launches": launches[name],
+                "replaces": f"msckf_tpu/ops/pallas_kernels.py:{line_no}",
+                "launches": launched,
                 "max_abs_err": row["err"],
                 "ms": row["ms"],
                 "plain_ms": row["plain"],
@@ -909,7 +1251,14 @@ def main(argv=None) -> int:
                 "bound_by": row["by"],
                 "library_ms": row["lib"],
             }
+
+        line = {"kernels": [
+            entry(name, row, launches[name], src[name][1], name)
             for name, row in kernel_rows.items()
+        ] + [
+            entry(name, row, batched_launches[name], batched_src[name],
+                  f"{name} (batched, B={row['B']})")
+            for name, row in batched_rows.items()
         ]}
         log(json.dumps(line))
     log(card)

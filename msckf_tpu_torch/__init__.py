@@ -8,6 +8,7 @@ PyTorch version runs instead. See ROADMAP.md for what is ported.
 """
 
 from msckf_tpu_torch.config import MSCKFConfig, NOISE_PRESETS, reference_experiment_config
+from msckf_tpu_torch.data.stream import circle_streams
 from msckf_tpu_torch.filter.msckf import (
     FrameStats,
     TickOutput,
@@ -23,6 +24,12 @@ from msckf_tpu_torch.filter.state import (
     init_state,
     state_from_numpy,
     state_to_numpy,
+)
+from msckf_tpu_torch.parallel.batched import (
+    batched_dispatch,
+    batched_frame_step,
+    batched_initial_state,
+    batched_run_sequence,
 )
 
 __all__ = [
@@ -41,4 +48,9 @@ __all__ = [
     "run_sequence",
     "state_from_numpy",
     "state_to_numpy",
+    "batched_dispatch",
+    "batched_frame_step",
+    "batched_initial_state",
+    "batched_run_sequence",
+    "circle_streams",
 ]

@@ -9,6 +9,10 @@
 // by pivot rows; the recurrence is block_gating_gamma in common.cuh, shared
 // with the fused update-terms kernel.
 //
+// The batched form (B sequences of U systems) is this launch over the B * U
+// systems flattened, as the JAX custom_vmap rule does (pallas_kernels.py
+// :258-273): each system's block runs the same code at its own offset.
+//
 // Design: one thread block per system. S (16 KB in f32, 32 KB in f64) lives
 // in shared memory for the whole factorization; per column the block
 // computes the corrected pivot row (O(n) work over the panel's earlier

@@ -1,4 +1,4 @@
-// 15x15 IMU-block covariance recurrence over a block of B ticks:
+// 15x15 IMU-block covariance recurrence over a block of nt ticks:
 //   P <- Phi_i P Phi_i^T + Qd_i, then P <- (P + P^T) / 2
 //   Phi_acc <- Phi_i Phi_acc
 // with each tick's diag(P)[0:3] and diag(P)[12:15] written out.
@@ -7,13 +7,17 @@
 // _p15_recurrence_kernel (:951). Phi_i and Qd_i come precomputed from the
 // batched per-tick math in filter/propagation.py::_phi_q_block.
 //
-// Design: one block of 256 threads, one thread per entry of the 15x15
-// (225 active). P, Phi_acc, the current Phi_i and the intermediate
-// Phi_i P live in shared memory; each tick is four barrier-separated
-// phases (load Phi_i; Phi_i P and Phi_i Phi_acc; (Phi_i P) Phi_i^T + Qd_i;
-// symmetrize). What bounds it on the H100: at B = 9 it reads and writes
-// ~19 KB and does ~0.19 MFLOP, nanoseconds of work for the card; its
-// time is the launch latency and the 4 x B barriers of one SM.
+// Design: one block of 256 threads per sequence, one thread per entry of
+// the 15x15 (225 active). A single call is one block; the batched form
+// (what pallas_call's own vmap rule makes of the TPU kernel: a leading
+// grid axis) runs one block per sequence, each at its own base offsets, so
+// every sequence gets the bits of a single launch. P, Phi_acc, the current
+// Phi_i and the intermediate Phi_i P live in shared memory; each tick is
+// four barrier-separated phases (load Phi_i; Phi_i P and Phi_i Phi_acc;
+// (Phi_i P) Phi_i^T + Qd_i; symmetrize). What bounds it on the H100: at
+// nt = 9 it reads and writes ~19 KB and does ~0.19 MFLOP per sequence,
+// nanoseconds of work for the card; its time is the launch latency and the
+// 4 x nt barriers of one SM.
 #include "common.cuh"
 
 namespace {
@@ -25,8 +29,15 @@ constexpr int kThreads = 256;
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 p15_kernel(const T* __restrict__ P0, const T* __restrict__ Phi, const T* __restrict__ Qd,
-           T* __restrict__ P_out, T* __restrict__ acc_out, T* __restrict__ sig, int B) {
+           T* __restrict__ P_out, T* __restrict__ acc_out, T* __restrict__ sig, int nt) {
   __shared__ T P[kNN], Ph[kNN], Acc[kNN], Tm[kNN], Pn[kNN];
+  const size_t sq = blockIdx.x;  // the sequence of a batched launch
+  P0 += sq * kNN;
+  Phi += sq * nt * kNN;
+  Qd += sq * nt * kNN;
+  P_out += sq * kNN;
+  acc_out += sq * kNN;
+  sig += sq * nt * 6;
   const int t = threadIdx.x;
   const bool act = t < kNN;
   const int i = t / kN, j = t - (t / kN) * kN;
@@ -35,7 +46,7 @@ p15_kernel(const T* __restrict__ P0, const T* __restrict__ Phi, const T* __restr
     Acc[t] = (i == j) ? T(1) : T(0);
   }
   __syncthreads();
-  for (int b = 0; b < B; ++b) {
+  for (int b = 0; b < nt; ++b) {
     if (act) Ph[t] = Phi[(size_t)b * kNN + t];
     __syncthreads();
     T acc_new = T(0);
@@ -70,24 +81,25 @@ p15_kernel(const T* __restrict__ P0, const T* __restrict__ Phi, const T* __restr
 
 template <typename T>
 int launch(const void* P0, const void* Phi, const void* Qd, void* P, void* acc, void* sig,
-           int B, cudaStream_t stream) {
-  if (B < 1) return (int)cudaErrorInvalidValue;
-  p15_kernel<T><<<1, kThreads, 0, stream>>>(
+           int nt, int B, cudaStream_t stream) {
+  if (nt < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  p15_kernel<T><<<B, kThreads, 0, stream>>>(
       static_cast<const T*>(P0), static_cast<const T*>(Phi), static_cast<const T*>(Qd),
-      static_cast<T*>(P), static_cast<T*>(acc), static_cast<T*>(sig), B);
+      static_cast<T*>(P), static_cast<T*>(acc), static_cast<T*>(sig), nt);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// every array carries a leading axis of B sequences; Phi and Qd hold nt ticks
 MSCKF_EXPORT int msckf_p15_recurrence_f32(const void* P0, const void* Phi, const void* Qd,
-                                          void* P, void* acc, void* sig, int B,
+                                          void* P, void* acc, void* sig, int nt, int B,
                                           void* stream) {
-  return launch<float>(P0, Phi, Qd, P, acc, sig, B, static_cast<cudaStream_t>(stream));
+  return launch<float>(P0, Phi, Qd, P, acc, sig, nt, B, static_cast<cudaStream_t>(stream));
 }
 
 MSCKF_EXPORT int msckf_p15_recurrence_f64(const void* P0, const void* Phi, const void* Qd,
-                                          void* P, void* acc, void* sig, int B,
+                                          void* P, void* acc, void* sig, int nt, int B,
                                           void* stream) {
-  return launch<double>(P0, Phi, Qd, P, acc, sig, B, static_cast<cudaStream_t>(stream));
+  return launch<double>(P0, Phi, Qd, P, acc, sig, nt, B, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-// B sequential OC-EKF propagation ticks in one kernel.
+// nt sequential OC-EKF propagation ticks in one kernel.
 //
 // Replaces msckf_tpu/ops/pallas_kernels.py::propagate_block_fused (:1216) ->
 // _propagate_block_call (:1148) -> _propagate_block_kernel (:1020), which
@@ -16,12 +16,16 @@
 // The arithmetic is the TPU kernel's; its layout is not: prop_count comes
 // in as an int64 and last_ts as a scalar, not packed into a float row.
 //
-// Design: one block of 256 threads. Thread 0 does the per-tick 3-vector and
-// 3x3 work (integration, null states, the fix-up); the 15x15 products
-// (Fdt^2, Fdt^3, Phi G, Q, Phi P15 Phi^T, Phi Phi_acc) run one entry per
-// thread over shared memory. What bounds it on the H100: at B = 1 it moves
-// under 3 KB and does ~40 KFLOP per tick; its time is the launch latency
-// and a dozen barriers per tick on one SM.
+// Design: one block of 256 threads per sequence. A single call is one
+// block; the batched form (the JAX custom_vmap rule's batch grid,
+// pallas_kernels.py:1197-1214) runs one block per sequence, each at its own
+// base offsets, so every sequence gets the bits of a single launch. Thread
+// 0 does the per-tick 3-vector and 3x3 work (integration, null states, the
+// fix-up); the 15x15 products (Fdt^2, Fdt^3, Phi G, Q, Phi P15 Phi^T,
+// Phi Phi_acc) run one entry per thread over shared memory. What bounds it
+// on the H100: at nt = 1 it moves under 3 KB and does ~40 KFLOP per tick
+// and sequence; its time is the launch latency and a dozen barriers per
+// tick on one SM.
 #include "common.cuh"
 
 namespace {
@@ -73,7 +77,34 @@ propagate_kernel(const T* __restrict__ R0, const T* __restrict__ p0,
                  T* __restrict__ lts_out, long long* __restrict__ pc_out,
                  T* __restrict__ P15_out, T* __restrict__ acc_out,
                  T* __restrict__ outR, T* __restrict__ outp, T* __restrict__ outv,
-                 T* __restrict__ outsig, int B) {
+                 T* __restrict__ outsig, int nt) {
+  // the sequence of a batched launch: every array at its own offset
+  const size_t sq = blockIdx.x;
+  R0 += sq * 9;
+  p0 += sq * 3;
+  v0 += sq * 3;
+  bg += sq * 3;
+  ba += sq * 3;
+  last_ts += sq;
+  prop_count += sq;
+  ts += sq * nt;
+  gyro += sq * nt * 3;
+  acc += sq * nt * 3;
+  valid += sq * nt;
+  qc += sq * 12;
+  grav += sq * 3;
+  P15_in += sq * kNN;
+  R_out += sq * 9;
+  p_out += sq * 3;
+  v_out += sq * 3;
+  lts_out += sq;
+  pc_out += sq;
+  P15_out += sq * kNN;
+  acc_out += sq * kNN;
+  outR += sq * nt * 9;
+  outp += sq * nt * 3;
+  outv += sq * nt * 3;
+  outsig += sq * nt * 6;
   __shared__ TickScalars<T> s;
   __shared__ T P15[kNN], Acc[kNN], Fd[kNN], Fd2[kNN], Phi[kNN], Tm[kNN], Pn[kNN];
   __shared__ T PG[kN * 12];
@@ -100,7 +131,7 @@ propagate_kernel(const T* __restrict__ R0, const T* __restrict__ p0,
   }
   __syncthreads();
 
-  for (int b = 0; b < B; ++b) {
+  for (int b = 0; b < nt; ++b) {
     // --- nominal integration and the per-tick 3x3 work (one thread) ---
     if (t == 0) {
       for (int k = 0; k < 3; ++k) {
@@ -290,9 +321,9 @@ propagate_kernel(const T* __restrict__ R0, const T* __restrict__ p0,
 }
 
 template <typename T>
-int launch(void* const* a, int B, cudaStream_t stream) {
-  if (B < 1) return (int)cudaErrorInvalidValue;
-  propagate_kernel<T><<<1, kThreads, 0, stream>>>(
+int launch(void* const* a, int nt, int B, cudaStream_t stream) {
+  if (nt < 1 || B < 1) return (int)cudaErrorInvalidValue;
+  propagate_kernel<T><<<B, kThreads, 0, stream>>>(
       static_cast<const T*>(a[0]), static_cast<const T*>(a[1]), static_cast<const T*>(a[2]),
       static_cast<const T*>(a[3]), static_cast<const T*>(a[4]), static_cast<const T*>(a[5]),
       static_cast<const long long*>(a[6]), static_cast<const T*>(a[7]),
@@ -302,22 +333,25 @@ int launch(void* const* a, int B, cudaStream_t stream) {
       static_cast<T*>(a[14]), static_cast<T*>(a[15]), static_cast<T*>(a[16]),
       static_cast<T*>(a[17]), static_cast<long long*>(a[18]), static_cast<T*>(a[19]),
       static_cast<T*>(a[20]), static_cast<T*>(a[21]), static_cast<T*>(a[22]),
-      static_cast<T*>(a[23]), static_cast<T*>(a[24]), B);
+      static_cast<T*>(a[23]), static_cast<T*>(a[24]), nt);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// every array carries a leading axis of B sequences; ts, gyro, acc, valid
+// and the per-tick outputs hold nt ticks
 #define PROPAGATE_ENTRY(NAME, T)                                                           \
   MSCKF_EXPORT int NAME(void* R0, void* p0, void* v0, void* bg, void* ba, void* last_ts,  \
                         void* prop_count, void* ts, void* gyro, void* acc, void* valid,   \
                         void* qc, void* grav, void* P15, void* R, void* p, void* v,        \
                         void* lts, void* pc, void* P15o, void* acc_o, void* outR,          \
-                        void* outp, void* outv, void* outsig, int B, void* stream) {       \
+                        void* outp, void* outv, void* outsig, int nt, int B,              \
+                        void* stream) {                                                    \
     void* const a[25] = {R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid,   \
                          qc, grav, P15, R, p, v, lts, pc, P15o, acc_o, outR, outp, outv,  \
                          outsig};                                                          \
-    return launch<T>(a, B, static_cast<cudaStream_t>(stream));                            \
+    return launch<T>(a, nt, B, static_cast<cudaStream_t>(stream));                        \
   }
 
 PROPAGATE_ENTRY(msckf_propagate_block_f32, float)

@@ -14,7 +14,11 @@
 // layout.
 //
 // Design: one thread per track, a sequential loop over its M observations
-// (the plain version sums in the same order). The file is built without
+// (the plain version sums in the same order), over a grid of (track blocks,
+// B sequences): the batched form (the JAX custom_vmap rule's batch grid,
+// pallas_kernels.py:911-928) is blockIdx.y, a single call is B = 1, and
+// each sequence reads and writes at its own base offsets, so a batched
+// launch gives each sequence the bits of a single launch. The file is built without
 // multiply-add contraction, so every product and sum rounds as in the plain
 // version, which makes the ok and field-of-view decisions bitwise equal
 // between the two. What bounds it on the H100: at F x M = 768 x 32 it reads
@@ -36,6 +40,17 @@ triage_kernel(const T* __restrict__ base, const T* __restrict__ dir,
               unsigned char* __restrict__ ok_out, int F, int M) {
   const int f = blockIdx.x * blockDim.x + threadIdx.x;
   if (f >= F) return;
+  const size_t sq = blockIdx.y;  // the sequence of a batched launch
+  base += sq * F * M * 3;
+  dir += sq * F * M * 3;
+  w += sq * F * M;
+  Ra += sq * F * 9;
+  ta += sq * F * 3;
+  K += sq * 9;
+  Ki += sq * 9;
+  m_out += sq * F * 3;
+  rho_out += sq * F;
+  ok_out += sq * F;
 
   // X = sum w (I - d d^T), y = sum w (I - d d^T) b over the observations
   T X00 = T(0), X01 = T(0), X02 = T(0), X11 = T(0), X12 = T(0), X22 = T(0);
@@ -114,10 +129,11 @@ triage_kernel(const T* __restrict__ base, const T* __restrict__ dir,
 template <typename T>
 int launch(const void* base, const void* dir, const void* w, const void* Ra,
            const void* ta, const void* K, const void* Ki, double eps, double width,
-           double height, void* m, void* rho, void* ok, int F, int M,
+           double height, void* m, void* rho, void* ok, int F, int M, int B,
            cudaStream_t stream) {
-  if (F < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  triage_kernel<T><<<(F + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+  if (F < 1 || M < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid((F + kThreads - 1) / kThreads, B);
+  triage_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(base), static_cast<const T*>(dir), static_cast<const T*>(w),
       static_cast<const T*>(Ra), static_cast<const T*>(ta), static_cast<const T*>(K),
       static_cast<const T*>(Ki), T(eps), T(width), T(height), static_cast<T*>(m),
@@ -127,18 +143,21 @@ int launch(const void* base, const void* dir, const void* w, const void* Ra,
 
 }  // namespace
 
+// every array carries a leading axis of B sequences (K and K^-1 too)
 MSCKF_EXPORT int msckf_triage_f32(const void* base, const void* dir, const void* w,
                                   const void* Ra, const void* ta, const void* K,
                                   const void* Ki, double eps, double width, double height,
-                                  void* m, void* rho, void* ok, int F, int M, void* stream) {
-  return launch<float>(base, dir, w, Ra, ta, K, Ki, eps, width, height, m, rho, ok, F, M,
+                                  void* m, void* rho, void* ok, int F, int M, int B,
+                                  void* stream) {
+  return launch<float>(base, dir, w, Ra, ta, K, Ki, eps, width, height, m, rho, ok, F, M, B,
                        static_cast<cudaStream_t>(stream));
 }
 
 MSCKF_EXPORT int msckf_triage_f64(const void* base, const void* dir, const void* w,
                                   const void* Ra, const void* ta, const void* K,
                                   const void* Ki, double eps, double width, double height,
-                                  void* m, void* rho, void* ok, int F, int M, void* stream) {
-  return launch<double>(base, dir, w, Ra, ta, K, Ki, eps, width, height, m, rho, ok, F, M,
+                                  void* m, void* rho, void* ok, int F, int M, int B,
+                                  void* stream) {
+  return launch<double>(base, dir, w, Ra, ta, K, Ki, eps, width, height, m, rho, ok, F, M, B,
                         static_cast<cudaStream_t>(stream));
 }

@@ -15,7 +15,12 @@
 // NaN crit or gamma fails. Rows of a rejected track are selected out (not
 // multiplied by 0), so an inf row adds exact zeros to A and c.
 //
-// Design, two launches counted as one call:
+// Design, two launches counted as one call, each over a grid with a second
+// axis of B sequences: the batched form (the JAX custom_vmap rule's
+// (B, tiles) grid, pallas_kernels.py:544-558) is blockIdx.y, a single call
+// is B = 1, and each sequence reads and writes at its own base offsets and
+// sums in the same fixed order, so a batched launch gives each sequence
+// the bits of a single launch:
 //   1. update_track_kernel, one block per track. H~ is formed in shared
 //      memory and written to a global scratch (U, 2M, D) with r~; S is built
 //      in row panels of kPanel rows (H~[panel] P, then against all of H~), so H~,
@@ -64,7 +69,7 @@ update_track_kernel(const T* __restrict__ H, const T* __restrict__ Hf,
                     const T* __restrict__ r, const T* __restrict__ P,
                     const T* __restrict__ crit, const unsigned char* __restrict__ sel_ok,
                     T sigma2, T eps, T* __restrict__ Ht, T* __restrict__ rt,
-                    unsigned char* __restrict__ passed, int R2, int D) {
+                    unsigned char* __restrict__ passed, int U, int R2, int D) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Hs = reinterpret_cast<T*>(smem_raw);
   const int ld = h_stride(D);
@@ -78,6 +83,16 @@ update_track_kernel(const T* __restrict__ H, const T* __restrict__ Hf,
   T* rowj = panel + kGateNB * kGateMaxN;
   T* sums = rowj + kGateMaxN;
 
+  const size_t sq = blockIdx.y;  // the sequence of a batched launch
+  H += sq * U * R2 * D;
+  Hf += sq * U * R2 * 3;
+  r += sq * U * R2;
+  P += sq * D * D;
+  crit += sq * U;
+  sel_ok += sq * U;
+  Ht += sq * U * R2 * D;
+  rt += sq * U * R2;
+  passed += sq * U;
   const int u = blockIdx.x;
   const int tid = threadIdx.x;
   const size_t hoff = (size_t)u * R2 * D;
@@ -205,6 +220,12 @@ update_accumulate_kernel(const T* __restrict__ Ht, const T* __restrict__ rt,
   const int nt = (D + kTile - 1) / kTile;
   const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
   const int rows = U * R2;
+  const size_t sq = blockIdx.y;  // the sequence of a batched launch
+  Ht += sq * rows * D;
+  rt += sq * rows;
+  passed += sq * U;
+  A += sq * D * D;
+  c += sq * D;
 
   if (blockIdx.x < nt * nt) {
     // A[a0 : a0 + 32, b0 : b0 + 32]; thread (tx, ty) holds rows ty + 8k
@@ -256,8 +277,9 @@ update_accumulate_kernel(const T* __restrict__ Ht, const T* __restrict__ rt,
 template <typename T>
 int launch(const void* H, const void* Hf, const void* r, const void* P, const void* crit,
            const void* sel_ok, void* Ht, void* rt, void* A, void* c, void* passed,
-           int U, int R2, int D, double sigma2, double eps, cudaStream_t stream) {
-  if (U < 1 || R2 < 1 || R2 > kGateMaxN || D < 1) return (int)cudaErrorInvalidValue;
+           int U, int R2, int D, int B, double sigma2, double eps, cudaStream_t stream) {
+  if (U < 1 || R2 < 1 || R2 > kGateMaxN || D < 1 || B < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = track_smem_elems(R2, D) * sizeof(T);
   // the shared-memory opt-in, made once per device and raised only when a
   // call needs more than the last one set
@@ -272,15 +294,15 @@ int launch(const void* H, const void* Hf, const void* r, const void* P, const vo
     if (err != cudaSuccess) return (int)err;
     if (dev < kMaxDevices) smem_set[dev] = smem;
   }
-  update_track_kernel<T><<<U, kThreads, smem, stream>>>(
+  update_track_kernel<T><<<dim3(U, B), kThreads, smem, stream>>>(
       static_cast<const T*>(H), static_cast<const T*>(Hf), static_cast<const T*>(r),
       static_cast<const T*>(P), static_cast<const T*>(crit),
       static_cast<const unsigned char*>(sel_ok), T(sigma2), T(eps), static_cast<T*>(Ht),
-      static_cast<T*>(rt), static_cast<unsigned char*>(passed), R2, D);
+      static_cast<T*>(rt), static_cast<unsigned char*>(passed), U, R2, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int nt = (D + kTile - 1) / kTile;
-  update_accumulate_kernel<T><<<nt * nt + nt, kThreads, 0, stream>>>(
+  update_accumulate_kernel<T><<<dim3(nt * nt + nt, B), kThreads, 0, stream>>>(
       static_cast<const T*>(Ht), static_cast<const T*>(rt),
       static_cast<const unsigned char*>(passed), static_cast<T*>(A), static_cast<T*>(c),
       U, R2, D);
@@ -289,20 +311,22 @@ int launch(const void* H, const void* Hf, const void* r, const void* P, const vo
 
 }  // namespace
 
+// every array carries a leading axis of B sequences (Ht and rt, the
+// per-track scratch, too)
 MSCKF_EXPORT int msckf_update_terms_f32(const void* H, const void* Hf, const void* r,
                                         const void* P, const void* crit, const void* sel_ok,
                                         void* Ht, void* rt, void* A, void* c, void* passed,
-                                        int U, int R2, int D, double sigma2, double eps,
-                                        void* stream) {
-  return launch<float>(H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed, U, R2, D, sigma2,
+                                        int U, int R2, int D, int B, double sigma2,
+                                        double eps, void* stream) {
+  return launch<float>(H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed, U, R2, D, B, sigma2,
                        eps, static_cast<cudaStream_t>(stream));
 }
 
 MSCKF_EXPORT int msckf_update_terms_f64(const void* H, const void* Hf, const void* r,
                                         const void* P, const void* crit, const void* sel_ok,
                                         void* Ht, void* rt, void* A, void* c, void* passed,
-                                        int U, int R2, int D, double sigma2, double eps,
-                                        void* stream) {
-  return launch<double>(H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed, U, R2, D, sigma2,
+                                        int U, int R2, int D, int B, double sigma2,
+                                        double eps, void* stream) {
+  return launch<double>(H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed, U, R2, D, B, sigma2,
                         eps, static_cast<cudaStream_t>(stream));
 }

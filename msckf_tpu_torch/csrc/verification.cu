@@ -11,23 +11,20 @@
 // XLA form), and the reference's literal comparison of H^-1 x2 against the
 // CURRENT keypoint.
 //
-// Design: a pure elementwise pass, one thread per pair. The current camera
-// pose, K and K^-1 (30 values) are copied device-to-device into constant
-// memory on the launch stream, so every thread reads them as broadcast
-// constants; each thread reads its 14 pair values and the track's keypoint
-// and writes 3 scores. What bounds it on the H100: at F x M = 24,576 pairs
-// it moves ~1.7 MB (0.5 us at 3.35 TB/s) and does ~11 MFLOP (0.2 us at
-// 67 TFLOP/s f32): bytes, and at this size mostly the launch itself.
+// Design: a pure elementwise pass, one thread per pair, over a grid of
+// (pair blocks, B sequences): the batched form (the JAX custom_vmap rule's
+// batch grid axis, pallas_kernels.py:737-750) is blockIdx.y, a single call
+// is B = 1, and each sequence reads and writes at its own base offsets, so
+// a batched launch gives each sequence the bits of a single launch. A
+// block copies its sequence's current camera pose, K and K^-1 (30 values)
+// into shared memory, so every thread reads them as broadcast values; each
+// thread reads its 14 pair values and the track's keypoint and writes 3
+// scores. What bounds it on the H100: at F x M = 24,576 pairs it moves
+// ~1.7 MB (0.5 us at 3.35 TB/s) and does ~11 MFLOP (0.2 us at 67 TFLOP/s
+// f32) per sequence: bytes, and at this size mostly the launch itself.
 #include "common.cuh"
 
 namespace {
-
-__constant__ float c_ver_f32[30];
-__constant__ double c_ver_f64[30];
-
-template <typename T> __device__ __forceinline__ const T* ver_consts();
-template <> __device__ __forceinline__ const float* ver_consts<float>() { return c_ver_f32; }
-template <> __device__ __forceinline__ const double* ver_consts<double>() { return c_ver_f64; }
 
 // (3x3) @ (3x3), row-major, with the summation order of the TPU kernel's
 // plane helpers (k = 0, 1, 2)
@@ -51,12 +48,23 @@ __device__ __forceinline__ void mv(const T* A, const T* x, T* out) {
 template <typename T>
 __global__ void verification_kernel(const T* __restrict__ R1, const T* __restrict__ t1,
                                     const T* __restrict__ kp1, const T* __restrict__ kp2,
-                                    T* __restrict__ homo, T* __restrict__ epi,
-                                    T* __restrict__ base, int F, int M) {
+                                    const T* __restrict__ consts, T* __restrict__ homo,
+                                    T* __restrict__ epi, T* __restrict__ base, int F, int M) {
+  __shared__ T C[30];
+  const size_t sq = blockIdx.y;  // the sequence of a batched launch
+  if (threadIdx.x < 30) C[threadIdx.x] = consts[sq * 30 + threadIdx.x];
+  __syncthreads();
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= F * M) return;
+  const size_t pairs = (size_t)F * M;
+  R1 += sq * pairs * 9;
+  t1 += sq * pairs * 3;
+  kp1 += sq * pairs * 2;
+  kp2 += sq * F * 2;
+  homo += sq * pairs;
+  epi += sq * pairs;
+  base += sq * pairs;
   const int f = idx / M;
-  const T* C = ver_consts<T>();
   const T* camR = C;
   const T* camt = C + 9;
   const T* K = C + 12;
@@ -122,34 +130,34 @@ __global__ void verification_kernel(const T* __restrict__ R1, const T* __restric
 
 template <typename T>
 int launch(const void* R1, const void* t1, const void* kp1, const void* kp2,
-           const void* consts, void* homo, void* epi, void* base, int F, int M,
+           const void* consts, void* homo, void* epi, void* base, int F, int M, int B,
            cudaStream_t stream) {
-  if (F < 1 || M < 1) return (int)cudaErrorInvalidValue;
-  const void* sym = (sizeof(T) == 4) ? (const void*)&c_ver_f32 : (const void*)&c_ver_f64;
-  cudaError_t err = cudaMemcpyToSymbolAsync(sym, consts, 30 * sizeof(T), 0,
-                                            cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess) return (int)err;
-  const int n = F * M;
+  if (F < 1 || M < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
   const int threads = 256;
-  verification_kernel<T><<<(n + threads - 1) / threads, threads, 0, stream>>>(
+  const dim3 grid((F * M + threads - 1) / threads, B);
+  verification_kernel<T><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(R1), static_cast<const T*>(t1), static_cast<const T*>(kp1),
-      static_cast<const T*>(kp2), static_cast<T*>(homo), static_cast<T*>(epi),
-      static_cast<T*>(base), F, M);
+      static_cast<const T*>(kp2), static_cast<const T*>(consts), static_cast<T*>(homo),
+      static_cast<T*>(epi), static_cast<T*>(base), F, M);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// consts: (B, 30) = camR (9) | camt (3) | K (9) | K^-1 (9) per sequence;
+// every other array carries a leading axis of B sequences
 MSCKF_EXPORT int msckf_verification_f32(const void* R1, const void* t1, const void* kp1,
                                         const void* kp2, const void* consts, void* homo,
-                                        void* epi, void* base, int F, int M, void* stream) {
-  return launch<float>(R1, t1, kp1, kp2, consts, homo, epi, base, F, M,
+                                        void* epi, void* base, int F, int M, int B,
+                                        void* stream) {
+  return launch<float>(R1, t1, kp1, kp2, consts, homo, epi, base, F, M, B,
                        static_cast<cudaStream_t>(stream));
 }
 
 MSCKF_EXPORT int msckf_verification_f64(const void* R1, const void* t1, const void* kp1,
                                         const void* kp2, const void* consts, void* homo,
-                                        void* epi, void* base, int F, int M, void* stream) {
-  return launch<double>(R1, t1, kp1, kp2, consts, homo, epi, base, F, M,
+                                        void* epi, void* base, int F, int M, int B,
+                                        void* stream) {
+  return launch<double>(R1, t1, kp1, kp2, consts, homo, epi, base, F, M, B,
                         static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,9 @@ gravity-aligns the initial orientation from the pre-vision accelerometer
 mean, splits the IMU ticks into a propagate-only prefix and camera-frame
 blocks (tick 0 of each block carries the camera), and pads keypoints and
 descriptors to the config's static shapes. ``to_device`` turns the result
-into torch tensors on the GPU (or the CPU, when asked).
+into torch tensors on the GPU (or the CPU, when asked). ``circle_streams``
+stacks the streams of several seeds of the circle preset for the batched
+path.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from msckf_tpu_torch.config import MSCKFConfig
+from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 from msckf_tpu_torch.ops.device import resolve_device
 
 
@@ -142,4 +145,30 @@ def to_device(stream: PreparedStream, cfg: MSCKFConfig, device=None) -> Prepared
     return PreparedStream(
         R_init=stream.R_init, prefix=cast(stream.prefix), frames=cast(stream.frames),
         n_ticks=stream.n_ticks, proc_cam_idx=stream.proc_cam_idx,
+    )
+
+
+def circle_streams(cfg: MSCKFConfig, seeds, max_ticks: int | None = None,
+                   n_world_points: int = 400) -> PreparedStream:
+    """One prepared stream of the circle preset per seed, stacked along a
+    leading batch axis (``R_init`` (B, 3, 3), every prefix and frame field
+    (B, ...)), for the batched entry points; ``to_device`` moves it. The
+    seeds change the noise, the world points and the keypoints, not the
+    trajectory or the camera ticks, so the streams have equal shapes."""
+    streams = []
+    for seed in seeds:
+        seq = generate_circle_sequence(rng=np.random.default_rng(seed),
+                                       n_world_points=n_world_points)
+        streams.append(build_stream(cfg, seq.timestamps, seq.imu_gyro, seq.imu_acc,
+                                    seq.cam_frame_ticks, seq.cam_keypoints,
+                                    seq.cam_descriptors, seq.cam_scores, max_ticks=max_ticks))
+
+    def stack(dicts):
+        return {k: np.stack([d[k] for d in dicts]) for k in dicts[0]}
+
+    return PreparedStream(
+        R_init=np.stack([st.R_init for st in streams]),
+        prefix=stack([st.prefix for st in streams]),
+        frames=stack([st.frames for st in streams]),
+        n_ticks=streams[0].n_ticks, proc_cam_idx=streams[0].proc_cam_idx,
     )

@@ -1,11 +1,14 @@
 """Sliding-window management: camera marginalization and pruning
-(port of ``msckf_tpu/filter/marginalization.py``, the cond form).
+(port of ``msckf_tpu/filter/marginalization.py``).
 
 Removal is a compaction permutation over the padded buffers: surviving
 cameras keep their insertion order, vacated slots are zeroed. With no
 victims the permutation is the identity, so ``remove_cameras`` needs no
-branch. The prune's second update keeps the JAX package's ``lax.cond`` as a
-Python branch on ``any(triage.valid)``: one host sync on a frame that prunes.
+branch. The prune's second update keeps the JAX package's ``lax.cond`` on
+``any(triage.valid)`` in one of three forms: a Python branch (one host sync
+on a frame that prunes), a select of both branches under
+``torch.func.vmap``, or, with ``branchless``, the update run unconditionally
+(with no valid feature it is the exact identity).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from msckf_tpu_torch.config import MSCKFConfig
-from msckf_tpu_torch.filter.state import FilterState
+from msckf_tpu_torch.filter.state import FilterState, select_state
 from msckf_tpu_torch.filter.tracks import compact_observations, select_rows, stable_rank
 from msckf_tpu_torch.filter.update import ekf_update, triage_features
 
@@ -117,11 +120,25 @@ def select_prune_victims(cfg: MSCKFConfig, state: FilterState) -> torch.Tensor:
     return stable_rank(key) < n_victims
 
 
-def prune_poorest_camera_states(cfg: MSCKFConfig, state: FilterState, stats=None) -> FilterState:
+def prune_poorest_camera_states(cfg: MSCKFConfig, state: FilterState, enable=None,
+                                branchless: bool = False, stats=None,
+                                batched: bool = False) -> FilterState:
     """Pick the (up to) two observed cameras with the fewest observations,
-    run a final update over the features that observe them (when any is
-    valid: one host sync), then marginalize them."""
+    run a final update over the features that observe them, then
+    marginalize them.
+
+    ``enable`` (a 0-dim bool tensor): no victims where it is False, which
+    makes the whole call an exact no-op (an empty triage subset, A = 0 and
+    c = 0, the identity permutation). ``branchless``: the update runs
+    whether or not a feature is valid (``prune_path="masked"``). Otherwise
+    the update is the JAX package's ``lax.cond``: with ``batched`` (under
+    ``torch.func.vmap``) both branches run and are selected, else a Python
+    branch reads ``any(valid)`` on the host (one sync, counted in
+    ``stats``). ``stats.prune_updates`` counts prunes whose update ran: a
+    device tensor where a host count would need a sync."""
     victim = select_prune_victims(cfg, state)
+    if enable is not None:
+        victim = victim & enable
     in_victim = (
         _obs_in_cam_mask(state.tracks.obs_cam_id, state.cams.cam_id, victim)
         & state.tracks.obs_valid
@@ -130,10 +147,17 @@ def prune_poorest_camera_states(cfg: MSCKFConfig, state: FilterState, stats=None
 
     tri = triage_features(cfg, state, subset)
     state = state.replace(tracks=tri.tracks)
-    run_update = bool(torch.any(tri.valid))  # host sync
-    if stats is not None:
-        stats.host_syncs += 1
-        stats.prune_updates += int(run_update)
-    if run_update:
-        state = ekf_update(cfg, state, tri.valid)
+    any_valid = torch.any(tri.valid)
+    if branchless or batched:
+        updated = ekf_update(cfg, state, tri.valid)
+        state = updated if branchless else select_state(any_valid, updated, state)
+        if stats is not None:
+            stats.prune_updates = stats.prune_updates + any_valid.to(torch.int64)
+    else:
+        run_update = bool(any_valid)  # host sync
+        if stats is not None:
+            stats.host_syncs += 1
+            stats.prune_updates += int(run_update)
+        if run_update:
+            state = ekf_update(cfg, state, tri.valid)
     return remove_cameras(cfg, state, victim)

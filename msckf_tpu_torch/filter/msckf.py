@@ -10,12 +10,17 @@ Python loop over camera-frame blocks, each of which
      when the window is full,
   3. propagates the remaining ticks as one block (the P15 recurrence kernel).
 
-Host syncs: the JAX ``lax.cond``s become Python branches, each of which
-reads one device value on the host. Per frame: the prune test
-(``n > max_camera_states``), the ``has_camera`` test unless
-``assume_camera``, and on a frame that prunes, the prune's own test before
-its update. ``FrameStats`` counts them; nothing else in ``frame_step``
-reads the device.
+Host syncs: on the single path the JAX ``lax.cond``s become Python
+branches, each of which reads one device value on the host. Per frame: the
+prune test (``n > max_camera_states``) unless ``prune_path="masked"``, the
+``has_camera`` test unless ``assume_camera``, and on a frame that prunes
+with the cond form, the prune's own test before its update. ``FrameStats``
+counts them; nothing else in ``frame_step`` reads the device.
+
+With ``batched=True`` (under ``torch.func.vmap``, from
+``parallel/batched.py``) every such branch becomes what ``jax.vmap`` makes
+of ``lax.cond``: both branches run and each leaf is selected
+(``filter/state.py::select_state``). That path reads nothing on the host.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from msckf_tpu_torch.filter.marginalization import (
 )
 from msckf_tpu_torch.filter.matching import fused_descriptors, mutual_match
 from msckf_tpu_torch.filter.propagation import propagate_block
-from msckf_tpu_torch.filter.state import FilterState, init_state
+from msckf_tpu_torch.filter.state import FilterState, init_state, select_state
 from msckf_tpu_torch.filter.tracks import extend_tracks, select_rows, spawn_tracks
 from msckf_tpu_torch.filter.update import ekf_update, triage_features
 from msckf_tpu_torch.filter.verification import verify_matches
@@ -42,13 +47,19 @@ from msckf_tpu_torch.ops.precision import with_f32_matmuls
 
 @dataclasses.dataclass
 class FrameStats:
-    """Host-side tally of the loop's control flow."""
+    """Tally of the loop's control flow. ``frames`` and ``host_syncs`` are
+    host counts. The other three are host counts where the loop branches on
+    the host; where counting them there would read the device (the batched
+    path, the masked prune) they are int64 device tensors, one count per
+    sequence on the batched path, to be read once after the loop."""
 
     frames: int = 0
     camera_steps: int = 0
     prunes: int = 0
     prune_updates: int = 0  # prunes whose features ran a second EKF update
     host_syncs: int = 0
+
+    DEVICE_COUNTS = ("camera_steps", "prunes", "prune_updates")
 
 
 def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -124,23 +135,40 @@ def process_features(cfg: MSCKFConfig, state: FilterState) -> FilterState:
 
 @with_f32_matmuls
 def camera_step(cfg: MSCKFConfig, state: FilterState, kp, desc, score, kp_valid,
-                stats: FrameStats | None = None) -> FilterState:
-    """The camera-frame update; prunes (a host-side branch) when the window
-    is full."""
+                stats: FrameStats | None = None, batched: bool = False) -> FilterState:
+    """The camera-frame update, then the prune when the window is full:
+    with ``prune_path="masked"`` the prune runs every frame with its
+    victims masked off while the window is not full (an exact no-op then);
+    with ``"cond"`` it is a host-side branch, or with ``batched`` a select
+    of both branches (the outer on the saturation, the prune's inner on its
+    update, as ``jax.vmap`` makes of the JAX package's two ``lax.cond``s)."""
     if cfg.only_imu:
         return state
-    if cfg.prune_path != "cond":
+    if cfg.prune_path not in ("cond", "masked"):
         unsupported("prune_path", cfg.prune_path, "§1 later slices")
     state = state_augmentation(cfg, state)
     state = add_camera_measurements(cfg, state, kp, desc, score, kp_valid)
     state = process_features(cfg, state)
-    saturated = bool(state.cams.n > cfg.max_camera_states)  # host sync
+    saturated = state.cams.n > cfg.max_camera_states
     if stats is not None:
         stats.camera_steps += 1
+    if cfg.prune_path == "masked" or batched:
+        if stats is not None:
+            stats.prunes = stats.prunes + saturated.to(torch.int64)
+        # in the batched cond form the prune's result is selected only where
+        # the window is full, so masking its victims elsewhere changes no
+        # selected bit; it keeps the prune's update count to the prunes
+        pruned = prune_poorest_camera_states(
+            cfg, state, enable=saturated, branchless=cfg.prune_path == "masked",
+            stats=stats, batched=batched,
+        )
+        return pruned if cfg.prune_path == "masked" else select_state(saturated, pruned, state)
+    saturated = bool(saturated)  # host sync
+    if stats is not None:
         stats.host_syncs += 1
         stats.prunes += int(saturated)
     if saturated:
-        state = prune_poorest_camera_states(cfg, state, stats)
+        state = prune_poorest_camera_states(cfg, state, stats=stats)
     return state
 
 
@@ -187,26 +215,40 @@ def _stack_outputs(outs) -> TickOutput:
 
 @with_f32_matmuls
 def frame_step(cfg: MSCKFConfig, state: FilterState, frame: dict,
-               assume_camera: bool = False, stats: FrameStats | None = None):
+               assume_camera: bool = False, stats: FrameStats | None = None,
+               batched: bool = False):
     """One camera-frame block: B IMU ticks, the camera on tick 0.
 
     ``assume_camera``: every block carries a camera (``build_stream``
     guarantees it), so the per-frame ``has_camera`` test and its host sync
-    are dropped. Returns (state, TickOutput with a leading B axis)."""
+    are dropped. ``batched``: the call runs under ``torch.func.vmap`` (the
+    batched entry points pass it), so each branch is a select of both
+    branches and nothing is read on the host. Returns (state, TickOutput
+    with a leading B axis)."""
     ts, gyro, acc, valid = (
         frame["imu_ts"], frame["imu_gyro"], frame["imu_acc"], frame["imu_valid"]
     )
     state, _ = propagate_block(cfg, state, ts[0:1], gyro[0:1], acc[0:1], valid[0:1])
 
+    def cam(s, tally):
+        return camera_step(cfg, s, frame["kp"], frame["desc"], frame["score"],
+                           frame["kp_valid"], tally, batched)
+
     if assume_camera:
-        run_cam = True
+        state = cam(state, stats)
+    elif batched:
+        run_cam = frame["has_camera"] & valid[0]
+        tally = FrameStats()  # the camera branch's counts, kept where it is selected
+        state = select_state(run_cam, cam(state, tally), state)
+        if stats is not None:
+            for f in FrameStats.DEVICE_COUNTS:
+                setattr(stats, f, getattr(stats, f) + run_cam.to(torch.int64) * getattr(tally, f))
     else:
         run_cam = bool(frame["has_camera"] & valid[0])  # host sync
         if stats is not None:
             stats.host_syncs += 1
-    if run_cam:
-        state = camera_step(cfg, state, frame["kp"], frame["desc"], frame["score"],
-                            frame["kp_valid"], stats)
+        if run_cam:
+            state = cam(state, stats)
     out0 = _tick_output(state, valid[0])
 
     state, outs = propagate_block(cfg, state, ts[1:], gyro[1:], acc[1:], valid[1:])

@@ -237,6 +237,21 @@ _STATE_CLASSES = {
     "imu": ImuState, "cams": CameraStates, "tracks": TrackStore, "diag": Diagnostics,
 }
 
+# torch pytrees, as the JAX package's state classes are JAX pytrees: so
+# torch.func.vmap maps over a FilterState leaf by leaf (parallel/batched.py)
+for _cls in (*_STATE_CLASSES.values(), FilterState):
+    torch.utils._pytree.register_dataclass(_cls)
+
+
+def select_state(pred: torch.Tensor, on_true, on_false):
+    """What ``jax.vmap`` makes of ``lax.cond``: both branches have run, and
+    every leaf of the result is the true branch's where ``pred``, else the
+    false branch's (``pred`` is a 0-dim bool, one per sequence under
+    ``torch.func.vmap``)."""
+    return torch.utils._pytree.tree_map(
+        lambda a, b: torch.where(pred, a, b), on_true, on_false
+    )
+
 
 @functools.lru_cache(maxsize=16)
 def device_consts(cfg: MSCKFConfig, device: torch.device) -> SimpleNamespace:

@@ -13,8 +13,11 @@ the gating kernel (``update_kernel="hybrid"``, ``gating_solver="auto"``, the
 default), the fused update-terms kernel (``update_kernel="fused"``, which
 ignores ``gating_solver`` as in the JAX package), or the hybrid terms with
 the batched-Cholesky gate (``update_kernel="xla"`` or
-``gating_solver="xla"``); and the LU gain solve with a float64 or float32
-correction chain. The other settings raise ``NotImplementedError``.
+``gating_solver="xla"``) or with the Jacobi-scaled Newton-Schulz gate
+(``gating_solver="ns"``; S built in float32 with TF32 off, where the JAX
+package builds it at the TPU's bf16-input matmul precision); and the LU
+gain solve with a float64 or float32 correction chain. The other settings
+raise ``NotImplementedError``.
 
 One repair against the JAX package: it masks the per-track factor W but not
 Kc in T_wk = sum W^T Kc, so a rejected track with an inf Jacobian gives
@@ -40,6 +43,7 @@ from msckf_tpu_torch.ops.smallmat import (
     default_rcond, matmul_small, matvec_small, polar_orthonormalize,
     tikhonov_inv_sym3, transpose_small,
 )
+from msckf_tpu_torch.ops.solve import ns_inverse
 from msckf_tpu_torch.ops.triangulation import intersect_lines
 
 
@@ -219,9 +223,6 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
             any_pass=torch.any(passed), n_gate_rejected=torch.sum(sel_ok & ~passed),
             n_overflow=torch.clamp(n_overflow, min=0),
         )
-    if cfg.gating_solver == "ns":
-        unsupported("gating_solver", cfg.gating_solver, "§1 later slices")
-
     # nullspace projector: r~ = r - Hf pinv (Hf^T r), H~ = H - Hf pinv (Hf^T H)
     HtH = torch.einsum("uri,urj->uij", Hf_stack, Hf_stack)
     Hpinv = tikhonov_inv_sym3(HtH, default_rcond(dt_))
@@ -234,7 +235,9 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     # chi-square gate: gamma = r~^T S^-1 r~ with S = H~ P H~^T + sigma^2 I
     HP = torch.einsum("urd,de->ure", H_t, state.P[15:, 15:])
     S = torch.einsum("ure,use->urs", HP, H_t) + sigma2 * torch.eye(2 * M, dtype=dt_, device=dev)
-    if cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
+    if cfg.gating_solver == "ns":
+        gamma = _ns_gamma(S, r_t, cfg.gating_ns_iters, sigma2)
+    elif cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
         gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
     else:
         gamma = _cholesky_gamma(S, r_t)
@@ -264,6 +267,25 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
         A=A, c=c, any_pass=torch.any(passed), n_gate_rejected=n_rej,
         n_overflow=torch.clamp(n_overflow, min=0),
     )
+
+
+def _ns_gamma(S: torch.Tensor, r: torch.Tensor, iters: int, sigma2: float) -> torch.Tensor:
+    """gamma = r^T S^-1 r by the Jacobi-scaled Newton-Schulz inverse and two
+    polish steps (``gating_solver="ns"``): Sh = D S D, rh = D r with
+    D = diag(S)^-1/2 removes S's per-row scale, ``ns_inverse`` inverts Sh,
+    and each polish step x <- x + X (rh - Sh x) multiplies the error by
+    ||I - X Sh||. diag(S) >= sigma^2 in exact arithmetic; it is clamped
+    there before the rsqrt, where the JAX package is not (ROADMAP §3): a
+    round-off-negative diagonal would give a NaN gamma that fails the gate
+    unseen."""
+    d_inv = torch.rsqrt(torch.clamp(torch.diagonal(S, dim1=-2, dim2=-1), min=sigma2))
+    Sh = S * (d_inv[..., :, None] * d_inv[..., None, :])
+    rh = r * d_inv
+    X = ns_inverse(Sh, iters)
+    x = torch.einsum("urs,us->ur", X, rh)
+    for _ in range(2):
+        x = x + torch.einsum("urs,us->ur", X, rh - torch.einsum("urs,us->ur", Sh, x))
+    return torch.sum(rh * x, dim=-1)
 
 
 def _cholesky_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

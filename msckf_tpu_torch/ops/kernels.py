@@ -3,11 +3,15 @@
 Each TPU kernel of the JAX package (``msckf_tpu/ops/pallas_kernels.py``)
 has here
 
-* a wrapper with the JAX package's public name, which checks its inputs,
-  allocates the outputs with ``torch.empty``, launches the CUDA kernel from
+* a wrapper with the JAX package's public name, a ``torch.library`` custom
+  op (namespace ``msckf``), which checks its inputs, allocates the outputs
+  with ``torch.empty``, launches the CUDA kernel from
   ``msckf_tpu_torch/csrc/`` on PyTorch's current stream, raises if the launch
   returns an error, and adds one to its launch count;
-* a plain PyTorch version (``*_plain``) that repeats the kernel's arithmetic.
+* the op's vmap rule, the batched form: under ``torch.func.vmap`` it
+  launches the same kernel once over a leading axis of B sequences;
+* a plain PyTorch version (``*_plain``) that repeats the kernel's
+  arithmetic and takes any leading batch axes.
 
 A wrapper checks its inputs on either device and takes the plain version
 only for tensors that lie on the CPU (the tests, and the CPU path of the
@@ -133,21 +137,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    # S, r, gamma, U, n, stream
+    # S, r, gamma, U, n, stream (a batch of sequences flattens into U)
     "msckf_gating": (_P, _P, _P, _I, _I, _P),
-    # R1, t1, kp1, kp2, consts(camR 9 | camt 3 | K 9 | Kinv 9), homo, epi, base, F, M, stream
-    "msckf_verification": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
-    # P0, Phi, Qd, P, Phi_acc, sig, B, stream
-    "msckf_p15_recurrence": (_P, _P, _P, _P, _P, _P, _I, _P),
+    # R1, t1, kp1, kp2, consts(camR 9 | camt 3 | K 9 | Kinv 9), homo, epi, base, F, M,
+    # B, stream
+    "msckf_verification": (_P,) * 8 + (_I, _I, _I, _P),
+    # P0, Phi, Qd, P, Phi_acc, sig, nt, B, stream
+    "msckf_p15_recurrence": (_P,) * 6 + (_I, _I, _P),
     # R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc, g,
     # P15, | R, p, v, last_ts, prop_count, P15, Phi_acc, outR, outp, outv,
-    # outsig, B, stream
-    "msckf_propagate_block": (_P,) * 25 + (_I, _P),
-    # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, stream
-    "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I, _I, _P),
-    # H, Hf, r, P, crit, sel_ok, | Ht, rt (scratch), A, c, passed, U, 2M, D,
+    # outsig, nt, B, stream
+    "msckf_propagate_block": (_P,) * 25 + (_I, _I, _P),
+    # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, B, stream
+    "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I, _I, _I, _P),
+    # H, Hf, r, P, crit, sel_ok, | Ht, rt (scratch), A, c, passed, U, 2M, D, B,
     # sigma2, eps, stream
-    "msckf_update_terms": (_P,) * 11 + (_I, _I, _I, _D, _D, _P),
+    "msckf_update_terms": (_P,) * 11 + (_I, _I, _I, _I, _D, _D, _P),
 }
 
 
@@ -186,6 +191,53 @@ def _float_dtype(t: torch.Tensor) -> torch.dtype:
     if t.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"kernels take float32 or float64, got {t.dtype}")
     return t.dtype
+
+
+# --------------------------------------------------------------------------
+# custom ops and their vmap rules
+# --------------------------------------------------------------------------
+# A ctypes launch is invisible to torch.func: under vmap a plain wrapper
+# would see batched tensors it cannot launch on. So every wrapper is a
+# torch.library custom op (namespace "msckf"), and its vmap rule, the
+# counterpart of the JAX custom_vmap rule, launches ONE batched kernel for
+# the whole batch (never one per sequence) or, on the CPU, runs the plain
+# version over the batch axis. Each launcher takes its tensors with a
+# leading axis of B sequences; a single call is B = 1.
+
+
+def _batch_first(info, in_dims, *args):
+    """Every tensor argument with the batch axis first and contiguous; an
+    unbatched one broadcast to the batch, as the JAX package's
+    ``_broadcast_unbatched`` (pallas_kernels.py:57-64) does."""
+    out = []
+    for x, d in zip(args, in_dims):
+        if isinstance(x, torch.Tensor):
+            x = x.expand(info.batch_size, *x.shape) if d is None else x.movedim(d, 0)
+            x = x.contiguous()
+        out.append(x)
+    return out
+
+
+def _single_call(launch, check, plain, tensors, scalars=()):
+    """One call: the plain version for CPU tensors, else the launcher at
+    B = 1."""
+    one = [x[None] for x in tensors]
+    if tensors[0].device.type == "cpu":
+        check(*one)
+        return plain(*tensors, *scalars)
+    return tuple(o[0] for o in launch(*one, *scalars))
+
+
+def _batched_call(launch, check, plain, info, in_dims, args, n_tensors):
+    """The vmap rule's body: one batched launch, or on the CPU the plain
+    version over the batch axis."""
+    args = _batch_first(info, in_dims, *args)
+    if args[0].device.type == "cpu":
+        check(*args[:n_tensors])
+        out = plain(*args)
+    else:
+        out = launch(*args)
+    return tuple(out), (0,) * len(out)
 
 
 # --------------------------------------------------------------------------
@@ -229,8 +281,7 @@ def batched_gating_gamma_plain(S: torch.Tensor, r: torch.Tensor, nb: int = GATIN
     return gamma
 
 
-def batched_gating_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
-    """S: (U, n, n) SPD systems (sigma^2-regularized), r: (U, n) -> (U,)."""
+def _gating(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     dt = _float_dtype(S)
     U, n = S.shape[0], S.shape[-1]
     _check(S, "S", (U, n, n), dt, S.device)
@@ -245,6 +296,22 @@ def batched_gating_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     _launch("msckf_gating", dt, S.data_ptr(), r.data_ptr(), gamma.data_ptr(), U, n)
     LAUNCHES["batched_gating_gamma"] += 1
     return gamma
+
+
+@torch.library.custom_op("msckf::batched_gating_gamma", mutates_args=())
+def batched_gating_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """S: (U, n, n) SPD systems (sigma^2-regularized), r: (U, n) -> (U,)."""
+    return _gating(S, r)
+
+
+@batched_gating_gamma.register_vmap
+def _gating_vmap(info, in_dims, S, r):
+    """B sequences of U systems: one launch over the B * U systems, as the
+    JAX rule flattens them (pallas_kernels.py:264-271)."""
+    S, r = _batch_first(info, in_dims, S, r)
+    B, U, n = S.shape[0], S.shape[1], S.shape[-1]
+    _check(S, "S", (B, U, n, n), _float_dtype(S), S.device)
+    return _gating(S.reshape(B * U, n, n), r.reshape(B * U, n)).reshape(B, U), 0
 
 
 # --------------------------------------------------------------------------
@@ -299,17 +366,18 @@ def _mv_pp(Ap, x):
 def verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     """(homography symmetric transfer error, signed epipolar residual,
     baseline) per (track, observation) pair, element by element as the TPU
-    kernel computes them, with its 1e-30 guard on the projected z."""
-    F, M = t1.shape[0], t1.shape[1]
+    kernel computes them, with its 1e-30 guard on the projected z. Takes
+    any leading batch axes (camR, camt, K and Kinv with the same ones)."""
     R1p = [R1[..., i, j] for i in range(3) for j in range(3)]
     t1p = [t1[..., i] for i in range(3)]
     kp1x, kp1y = kp1[..., 0], kp1[..., 1]
-    kp2x = kp2[:, None, 0].expand(F, M)
-    kp2y = kp2[:, None, 1].expand(F, M)
-    cR = [[camR[i, j] for j in range(3)] for i in range(3)]
-    ct = [camt[i] for i in range(3)]
-    Ks = [[K[i, j] for j in range(3)] for i in range(3)]
-    Ki = [[Kinv[i, j] for j in range(3)] for i in range(3)]
+    kp2x = kp2[..., :, None, 0].expand(kp1x.shape)
+    kp2y = kp2[..., :, None, 1].expand(kp1x.shape)
+    # the per-call constants, broadcast over the (F, M) pairs
+    cR = [[camR[..., i, j, None, None] for j in range(3)] for i in range(3)]
+    ct = [camt[..., i, None, None] for i in range(3)]
+    Ks = [[K[..., i, j, None, None] for j in range(3)] for i in range(3)]
+    Ki = [[Kinv[..., i, j, None, None] for j in range(3)] for i in range(3)]
     KiT = [[Ki[j][i] for j in range(3)] for i in range(3)]
     one = torch.ones_like(kp1x)
     tiny = torch.full_like(kp1x, 1e-30)
@@ -343,32 +411,49 @@ def verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     return homo, epi, base
 
 
-def verification_scores(R1, t1, kp1, kp2, camR, camt, K, Kinv):
-    """R1 (F, M, 3, 3), t1 (F, M, 3), kp1 (F, M, 2), kp2 (F, 2), camR (3, 3),
-    camt (3,), K and Kinv (3, 3) -> homo, epi, base, each (F, M)."""
+def _verification_check(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     dt = _float_dtype(t1)
-    F, M = t1.shape[0], t1.shape[1]
+    B, F, M = t1.shape[:3]
     dev = t1.device
-    _check(R1, "R1", (F, M, 3, 3), dt, dev)
-    _check(t1, "t1", (F, M, 3), dt, dev)
-    _check(kp1, "kp1", (F, M, 2), dt, dev)
-    _check(kp2, "kp2", (F, 2), dt, dev)
-    for name, x, shape in (("camR", camR, (3, 3)), ("camt", camt, (3,)),
-                           ("K", K, (3, 3)), ("Kinv", Kinv, (3, 3))):
-        if tuple(x.shape) != shape or x.dtype != dt or x.device != dev:
-            raise ValueError(f"{name}: expected {shape} {dt} on {dev}")
-    if dev.type == "cpu":
-        return verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv)
-    consts = torch.cat([camR.reshape(9), camt, K.reshape(9), Kinv.reshape(9)])
-    homo = torch.empty((F, M), dtype=dt, device=dev)
+    for name, x, shape in (
+        ("R1", R1, (B, F, M, 3, 3)), ("t1", t1, (B, F, M, 3)), ("kp1", kp1, (B, F, M, 2)),
+        ("kp2", kp2, (B, F, 2)), ("camR", camR, (B, 3, 3)), ("camt", camt, (B, 3)),
+        ("K", K, (B, 3, 3)), ("Kinv", Kinv, (B, 3, 3)),
+    ):
+        _check(x, name, shape, dt, dev)
+    return dt, B, F, M
+
+
+def _verification_launch(R1, t1, kp1, kp2, camR, camt, K, Kinv):
+    dt, B, F, M = _verification_check(R1, t1, kp1, kp2, camR, camt, K, Kinv)
+    dev = t1.device
+    consts = torch.cat([camR.reshape(B, 9), camt, K.reshape(B, 9), Kinv.reshape(B, 9)], dim=1)
+    homo = torch.empty((B, F, M), dtype=dt, device=dev)
     epi = torch.empty_like(homo)
     base = torch.empty_like(homo)
-    if F * M == 0:
+    if B * F * M == 0:
         return homo, epi, base
     _launch("msckf_verification", dt,
-            *(t.data_ptr() for t in (R1, t1, kp1, kp2, consts, homo, epi, base)), F, M)
+            *(t.data_ptr() for t in (R1, t1, kp1, kp2, consts, homo, epi, base)), F, M, B)
     LAUNCHES["verification_scores"] += 1
     return homo, epi, base
+
+
+@torch.library.custom_op("msckf::verification_scores", mutates_args=())
+def verification_scores(R1: torch.Tensor, t1: torch.Tensor, kp1: torch.Tensor,
+                        kp2: torch.Tensor, camR: torch.Tensor, camt: torch.Tensor,
+                        K: torch.Tensor, Kinv: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """R1 (F, M, 3, 3), t1 (F, M, 3), kp1 (F, M, 2), kp2 (F, 2), camR (3, 3),
+    camt (3,), K and Kinv (3, 3) -> homo, epi, base, each (F, M)."""
+    return _single_call(_verification_launch, _verification_check, verification_scores_plain,
+                        (R1, t1, kp1, kp2, camR, camt, K, Kinv))
+
+
+@verification_scores.register_vmap
+def _verification_vmap(info, in_dims, *args):
+    return _batched_call(_verification_launch, _verification_check,
+                         verification_scores_plain, info, in_dims, args, 8)
 
 
 # --------------------------------------------------------------------------
@@ -378,39 +463,57 @@ def verification_scores(R1, t1, kp1, kp2, camR, camt, K, Kinv):
 
 
 def p15_recurrence_fused_plain(P0, Phi, Qd):
-    """Over B ticks: P <- Phi_i P Phi_i^T + Qd_i, symmetrized;
-    Phi_acc <- Phi_i Phi_acc; per-tick diag(P)[0:3] and [12:15]."""
-    B = Phi.shape[0]
+    """Over nt ticks: P <- Phi_i P Phi_i^T + Qd_i, symmetrized;
+    Phi_acc <- Phi_i Phi_acc; per-tick diag(P)[0:3] and [12:15]. Takes any
+    leading batch axes."""
     P = P0
     Acc = torch.eye(15, dtype=P0.dtype, device=P0.device)
     sig = []
-    for i in range(B):
-        P = Phi[i] @ P @ Phi[i].T + Qd[i]
-        P = 0.5 * (P + P.T)
-        Acc = Phi[i] @ Acc
-        dg = torch.diagonal(P)
-        sig.append(torch.cat([dg[0:3], dg[12:15]]))
-    return P, Acc, torch.stack(sig)
+    for i in range(Phi.shape[-3]):
+        Ph = Phi[..., i, :, :]
+        P = Ph @ P @ Ph.mT + Qd[..., i, :, :]
+        P = 0.5 * (P + P.mT)
+        Acc = Ph @ Acc
+        dg = torch.diagonal(P, dim1=-2, dim2=-1)
+        sig.append(torch.cat([dg[..., 0:3], dg[..., 12:15]], dim=-1))
+    return P, Acc, torch.stack(sig, dim=-2)
 
 
-def p15_recurrence_fused(P0, Phi, Qd):
-    """P0 (15, 15), Phi and Qd (B, 15, 15) -> P (15, 15), Phi_acc (15, 15),
-    sigma diagonals (B, 6)."""
+def _p15_check(P0, Phi, Qd):
     dt = _float_dtype(P0)
-    B = Phi.shape[0]
+    B, nt = Phi.shape[:2]
+    for name, x, shape in (("P0", P0, (B, 15, 15)), ("Phi", Phi, (B, nt, 15, 15)),
+                           ("Qd", Qd, (B, nt, 15, 15))):
+        _check(x, name, shape, dt, P0.device)
+    return dt, B, nt
+
+
+def _p15_launch(P0, Phi, Qd):
+    dt, B, nt = _p15_check(P0, Phi, Qd)
     dev = P0.device
-    _check(P0, "P0", (15, 15), dt, dev)
-    _check(Phi, "Phi", (B, 15, 15), dt, dev)
-    _check(Qd, "Qd", (B, 15, 15), dt, dev)
-    if dev.type == "cpu":
-        return p15_recurrence_fused_plain(P0, Phi, Qd)
-    P = torch.empty((15, 15), dtype=dt, device=dev)
+    P = torch.empty((B, 15, 15), dtype=dt, device=dev)
     acc = torch.empty_like(P)
-    sig = torch.empty((B, 6), dtype=dt, device=dev)
+    sig = torch.empty((B, nt, 6), dtype=dt, device=dev)
     _launch("msckf_p15_recurrence", dt, P0.data_ptr(), Phi.data_ptr(), Qd.data_ptr(),
-            P.data_ptr(), acc.data_ptr(), sig.data_ptr(), B)
+            P.data_ptr(), acc.data_ptr(), sig.data_ptr(), nt, B)
     LAUNCHES["p15_recurrence_fused"] += 1
     return P, acc, sig
+
+
+@torch.library.custom_op("msckf::p15_recurrence_fused", mutates_args=())
+def p15_recurrence_fused(P0: torch.Tensor, Phi: torch.Tensor, Qd: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """P0 (15, 15), Phi and Qd (nt, 15, 15) -> P (15, 15), Phi_acc (15, 15),
+    sigma diagonals (nt, 6)."""
+    return _single_call(_p15_launch, _p15_check, p15_recurrence_fused_plain, (P0, Phi, Qd))
+
+
+@p15_recurrence_fused.register_vmap
+def _p15_vmap(info, in_dims, *args):
+    """One block per sequence: pallas_call's own vmap rule for this kernel
+    (a leading grid axis)."""
+    return _batched_call(_p15_launch, _p15_check, p15_recurrence_fused_plain, info, in_dims,
+                         args, 3)
 
 
 # --------------------------------------------------------------------------
@@ -420,148 +523,180 @@ def p15_recurrence_fused(P0, Phi, Qd):
 
 
 def _skew3(w):
-    z = torch.zeros_like(w[0])
+    """(..., 3) -> (..., 3, 3) cross-product matrices."""
+    z = torch.zeros_like(w[..., 0])
     return torch.stack([
-        torch.stack([z, -w[2], w[1]]),
-        torch.stack([w[2], z, -w[0]]),
-        torch.stack([-w[1], w[0], z]),
-    ])
+        torch.stack([z, -w[..., 2], w[..., 1]], dim=-1),
+        torch.stack([w[..., 2], z, -w[..., 0]], dim=-1),
+        torch.stack([-w[..., 1], w[..., 0], z], dim=-1),
+    ], dim=-2)
+
+
+def _blocks(rows):
+    """A matrix from rows of (..., 3, 3) blocks, the blocks' leading axes
+    broadcast against each other."""
+    lead = torch.broadcast_shapes(*(b.shape[:-2] for row in rows for b in row))
+    return torch.cat([
+        torch.cat([b.expand(*lead, *b.shape[-2:]) for b in row], dim=-1) for row in rows
+    ], dim=-2)
+
+
+def _mv(A, x):
+    """(..., m, k) @ (..., k) -> (..., m)."""
+    return (A @ x[..., :, None])[..., 0]
 
 
 def propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
                                 ts, gyro, acc, valid, qc, gravity, P15):
-    """B sequential OC-EKF ticks as the TPU kernel runs them: Rodrigues
+    """nt sequential OC-EKF ticks as the TPU kernel runs them: Rodrigues
     nominal integration, F and the third-order Taylor Phi, the
     observability-constrained fix-up (identity null state while
     prop_count == 0), Q = (Phi G) diag(Qc) (Phi G)^T dt, the P15 and
-    Phi_acc recurrences, and masked commits on padding ticks."""
+    Phi_acc recurrences, and masked commits on padding ticks. Takes any
+    leading batch axes."""
     dt_ = R0.dtype
     dev = R0.device
     I3 = torch.eye(3, dtype=dt_, device=dev)
     Z3 = torch.zeros((3, 3), dtype=dt_, device=dev)
-    Z3x15 = torch.zeros((3, 15), dtype=dt_, device=dev)
     I15 = torch.eye(15, dtype=dt_, device=dev)
     R, p, v, lts, pc = R0, p0, v0, last_ts, prop_count
     Phi_acc = I15
     outR, outp, outv, outsig = [], [], [], []
-    for i in range(ts.shape[0]):
-        t_i = ts[i]
-        g_i = gyro[i] - bg
-        a_i = acc[i] - ba
-        ok = valid[i]
+    for i in range(ts.shape[-1]):
+        t_i = ts[..., i]
+        g_i = gyro[..., i, :] - bg
+        a_i = acc[..., i, :] - ba
+        ok = valid[..., i]
         dt = t_i - lts
+        dt1, dt2 = dt[..., None], dt[..., None, None]
 
         first = pc == 0
-        R_null = torch.where(first, I3, R)
-        v_null = torch.where(first, torch.zeros_like(v), v)
-        p_null = torch.where(first, torch.zeros_like(p), p)
+        R_null = torch.where(first[..., None, None], I3, R)
+        v_null = torch.where(first[..., None], torch.zeros_like(v), v)
+        p_null = torch.where(first[..., None], torch.zeros_like(p), p)
 
-        w_norm = torch.sqrt(torch.sum(g_i * g_i))
+        w_norm = torch.sqrt(torch.sum(g_i * g_i, dim=-1))
         theta = w_norm * dt
-        axis = g_i / torch.where(w_norm < 1e-30, torch.ones_like(w_norm), w_norm)
+        axis = g_i / torch.where(w_norm < 1e-30, torch.ones_like(w_norm), w_norm)[..., None]
         Kx = _skew3(axis)
-        dR = I3 + torch.sin(theta) * Kx + (1.0 - torch.cos(theta)) * (Kx @ Kx)
-        dR = torch.where(theta > 0, dR, I3)
+        dR = (I3 + torch.sin(theta)[..., None, None] * Kx
+              + (1.0 - torch.cos(theta))[..., None, None] * (Kx @ Kx))
+        dR = torch.where((theta > 0)[..., None, None], dR, I3)
         R_new = R @ dR
-        a_w = a_i @ R.T - gravity  # row form of R @ acc - g
-        p_new = p + v * dt + 0.5 * a_w * dt * dt
-        v_new = v + a_w * dt
+        a_w = (a_i[..., None, :] @ R.mT)[..., 0, :] - gravity  # row form of R @ acc - g
+        p_new = p + v * dt1 + 0.5 * a_w * dt1 * dt1
+        v_new = v + a_w * dt1
 
-        F = torch.cat([
-            torch.cat([-_skew3(g_i), -I3, Z3, Z3, Z3], dim=1),
-            Z3x15,
-            torch.cat([-(R_new @ _skew3(a_i)), Z3, Z3, -R_new, Z3], dim=1),
-            Z3x15,
-            torch.cat([Z3, Z3, I3, Z3, Z3], dim=1),
-        ], dim=0)
-        Fdt = F * dt
+        F = _blocks([
+            [-_skew3(g_i), -I3, Z3, Z3, Z3],
+            [Z3] * 5,
+            [-(R_new @ _skew3(a_i)), Z3, Z3, -R_new, Z3],
+            [Z3] * 5,
+            [Z3, Z3, I3, Z3, Z3],
+        ])
+        Fdt = F * dt2
         Fdt2 = Fdt @ Fdt
         Phi = I15 + Fdt + 0.5 * Fdt2 + (1.0 / 6.0) * (Fdt2 @ Fdt)
 
-        u_col = R_null @ gravity
-        u_row = gravity @ R_null.T
-        s_row = u_row / torch.sum(u_row * u_row)
-        A_vel = Phi[6:9, 0:3]
-        A_pos = Phi[12:15, 0:3]
-        w1 = _skew3(v_null - v_new) @ gravity
-        w2 = _skew3(dt * v_null + p_null - p_new) @ gravity
-        corr_vel = (A_vel @ u_col - w1)[:, None] * s_row[None, :]
-        corr_pos = (A_pos @ u_col - w2)[:, None] * s_row[None, :]
+        u_col = _mv(R_null, gravity)
+        u_row = (gravity[..., None, :] @ R_null.mT)[..., 0, :]
+        s_row = u_row / torch.sum(u_row * u_row, dim=-1, keepdim=True)
+        A_vel = Phi[..., 6:9, 0:3]
+        A_pos = Phi[..., 12:15, 0:3]
+        w1 = _mv(_skew3(v_null - v_new), gravity)
+        w2 = _mv(_skew3(dt1 * v_null + p_null - p_new), gravity)
+        corr_vel = (_mv(A_vel, u_col) - w1)[..., :, None] * s_row[..., None, :]
+        corr_pos = (_mv(A_pos, u_col) - w2)[..., :, None] * s_row[..., None, :]
         Phi = torch.cat([
-            torch.cat([R_new @ R_null.T, Phi[0:3, 3:]], dim=1),
-            Phi[3:6],
-            torch.cat([A_vel - corr_vel, Phi[6:9, 3:]], dim=1),
-            Phi[9:12],
-            torch.cat([A_pos - corr_pos, Phi[12:15, 3:]], dim=1),
-        ], dim=0)
+            torch.cat([R_new @ R_null.mT, Phi[..., 0:3, 3:]], dim=-1),
+            Phi[..., 3:6, :],
+            torch.cat([A_vel - corr_vel, Phi[..., 6:9, 3:]], dim=-1),
+            Phi[..., 9:12, :],
+            torch.cat([A_pos - corr_pos, Phi[..., 12:15, 3:]], dim=-1),
+        ], dim=-2)
 
-        PG = torch.cat(
-            [-Phi[:, 0:3], Phi[:, 3:6], -(Phi[:, 6:9] @ R_new), Phi[:, 9:12]], dim=1
-        )
-        Q = (PG * qc) @ PG.T * dt
-        P15_new = Phi @ P15 @ Phi.T + Q
-        P15_new = 0.5 * (P15_new + P15_new.T)
+        PG = torch.cat([-Phi[..., :, 0:3], Phi[..., :, 3:6], -(Phi[..., :, 6:9] @ R_new),
+                        Phi[..., :, 9:12]], dim=-1)
+        Q = (PG * qc[..., None, :]) @ PG.mT * dt2
+        P15_new = Phi @ P15 @ Phi.mT + Q
+        P15_new = 0.5 * (P15_new + P15_new.mT)
         Phi_acc_new = Phi @ Phi_acc
 
-        R = torch.where(ok, R_new, R)
-        p = torch.where(ok, p_new, p)
-        v = torch.where(ok, v_new, v)
+        okv, okm = ok[..., None], ok[..., None, None]
+        R = torch.where(okm, R_new, R)
+        p = torch.where(okv, p_new, p)
+        v = torch.where(okv, v_new, v)
         lts = torch.where(ok, t_i, lts)
         pc = torch.where(ok, pc + 1, pc)
-        P15 = torch.where(ok, P15_new, P15)
-        Phi_acc = torch.where(ok, Phi_acc_new, Phi_acc)
+        P15 = torch.where(okm, P15_new, P15)
+        Phi_acc = torch.where(okm, Phi_acc_new, Phi_acc)
 
         outR.append(R)
         outp.append(p)
         outv.append(v)
-        dg = torch.diagonal(P15)
-        outsig.append(torch.cat([dg[0:3], dg[12:15]]))
-    return (R, p, v, lts, pc, P15, Phi_acc, torch.stack(outR), torch.stack(outp),
-            torch.stack(outv), torch.stack(outsig))
+        dg = torch.diagonal(P15, dim1=-2, dim2=-1)
+        outsig.append(torch.cat([dg[..., 0:3], dg[..., 12:15]], dim=-1))
+    return (R, p, v, lts, pc, P15, Phi_acc, torch.stack(outR, dim=-3),
+            torch.stack(outp, dim=-2), torch.stack(outv, dim=-2), torch.stack(outsig, dim=-2))
 
 
-def propagate_block_fused(R0, p0, v0, bg, ba, last_ts, prop_count,
-                          ts, gyro, acc, valid, qc, gravity, P15):
-    """One kernel for a block of B OC-EKF ticks.
-
-    Returns (R, p, v, last_ts, prop_count, P15, Phi_acc, per-tick R (B,3,3),
-    p (B,3), v (B,3), sigma diagonals (B,6)). ``prop_count`` is an int64
-    scalar tensor, ``valid`` a bool (B,) tensor."""
+def _propagate_check(R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc,
+                     gravity, P15):
     dt = _float_dtype(R0)
     dev = R0.device
-    B = ts.shape[0]
+    B, nt = ts.shape
     for name, x, shape in (
-        ("R0", R0, (3, 3)), ("p0", p0, (3,)), ("v0", v0, (3,)), ("bg", bg, (3,)),
-        ("ba", ba, (3,)), ("last_ts", last_ts, ()), ("ts", ts, (B,)),
-        ("gyro", gyro, (B, 3)), ("acc", acc, (B, 3)), ("qc", qc, (12,)),
-        ("gravity", gravity, (3,)), ("P15", P15, (15, 15)),
+        ("R0", R0, (B, 3, 3)), ("p0", p0, (B, 3)), ("v0", v0, (B, 3)), ("bg", bg, (B, 3)),
+        ("ba", ba, (B, 3)), ("last_ts", last_ts, (B,)), ("ts", ts, (B, nt)),
+        ("gyro", gyro, (B, nt, 3)), ("acc", acc, (B, nt, 3)), ("qc", qc, (B, 12)),
+        ("gravity", gravity, (B, 3)), ("P15", P15, (B, 15, 15)),
     ):
         _check(x, name, shape, dt, dev)
-    _check(prop_count, "prop_count", (), torch.int64, dev)
-    _check(valid, "valid", (B,), torch.bool, dev)
-    if dev.type == "cpu":
-        return propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
-                                           ts, gyro, acc, valid, qc, gravity, P15)
-    R = torch.empty((3, 3), dtype=dt, device=dev)
-    p = torch.empty(3, dtype=dt, device=dev)
-    v = torch.empty(3, dtype=dt, device=dev)
-    lts = torch.empty((), dtype=dt, device=dev)
-    pc = torch.empty((), dtype=torch.int64, device=dev)
-    P15_out = torch.empty((15, 15), dtype=dt, device=dev)
-    acc_out = torch.empty((15, 15), dtype=dt, device=dev)
-    outR = torch.empty((B, 3, 3), dtype=dt, device=dev)
-    outp = torch.empty((B, 3), dtype=dt, device=dev)
-    outv = torch.empty((B, 3), dtype=dt, device=dev)
-    outsig = torch.empty((B, 6), dtype=dt, device=dev)
-    _launch(
-        "msckf_propagate_block", dt,
-        *(t.data_ptr() for t in (R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc,
-                                 valid, qc, gravity, P15, R, p, v, lts, pc, P15_out,
-                                 acc_out, outR, outp, outv, outsig)),
-        B,
-    )
+    _check(prop_count, "prop_count", (B,), torch.int64, dev)
+    _check(valid, "valid", (B, nt), torch.bool, dev)
+    return dt, B, nt
+
+
+def _propagate_launch(R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc,
+                      gravity, P15):
+    args = (R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc, gravity, P15)
+    dt, B, nt = _propagate_check(*args)
+    dev = R0.device
+
+    def empty(*shape, dtype=dt):
+        return torch.empty((B, *shape), dtype=dtype, device=dev)
+
+    outs = (empty(3, 3), empty(3), empty(3), empty(), empty(dtype=torch.int64),
+            empty(15, 15), empty(15, 15), empty(nt, 3, 3), empty(nt, 3), empty(nt, 3),
+            empty(nt, 6))
+    _launch("msckf_propagate_block", dt, *(t.data_ptr() for t in args + outs), nt, B)
     LAUNCHES["propagate_block_fused"] += 1
-    return R, p, v, lts, pc, P15_out, acc_out, outR, outp, outv, outsig
+    return outs
+
+
+@torch.library.custom_op("msckf::propagate_block_fused", mutates_args=())
+def propagate_block_fused(
+    R0: torch.Tensor, p0: torch.Tensor, v0: torch.Tensor, bg: torch.Tensor,
+    ba: torch.Tensor, last_ts: torch.Tensor, prop_count: torch.Tensor, ts: torch.Tensor,
+    gyro: torch.Tensor, acc: torch.Tensor, valid: torch.Tensor, qc: torch.Tensor,
+    gravity: torch.Tensor, P15: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """One kernel for a block of nt OC-EKF ticks.
+
+    Returns (R, p, v, last_ts, prop_count, P15, Phi_acc, per-tick R (nt,3,3),
+    p (nt,3), v (nt,3), sigma diagonals (nt,6)). ``prop_count`` is an int64
+    scalar tensor, ``valid`` a bool (nt,) tensor."""
+    return _single_call(_propagate_launch, _propagate_check, propagate_block_fused_plain,
+                        (R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc,
+                         gravity, P15))
+
+
+@propagate_block_fused.register_vmap
+def _propagate_vmap(info, in_dims, *args):
+    return _batched_call(_propagate_launch, _propagate_check, propagate_block_fused_plain,
+                         info, in_dims, args, 14)
 
 
 # --------------------------------------------------------------------------
@@ -578,18 +713,20 @@ def triage_refresh_fused_plain(line_base, line_dir, weights, anchor_R, anchor_t,
     the TPU kernel's floors (1e-30 on the direction norm, |z| and |W_v|;
     1e-20 on the Gram scale; 1e-38 on |det|). Every divisor is a tensor:
     PyTorch on the GPU divides by a Python number as a multiplication by its
-    reciprocal, which the kernel does not."""
-    F, M = weights.shape
-    full = functools.partial(torch.full, (F,), dtype=weights.dtype, device=weights.device)
+    reciprocal, which the kernel does not. Takes any leading batch axes (K
+    and Kinv with the same ones)."""
+    M = weights.shape[-1]
+    full = functools.partial(torch.full, weights.shape[:-1], dtype=weights.dtype,
+                             device=weights.device)
     zero, one, three = full(0.0), full(1.0), full(3.0)
     tiny = full(1e-30)
     pairs = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
     X = dict.fromkeys(pairs, zero)
     y = [zero, zero, zero]
     for m in range(M):
-        b = [line_base[:, m, i] for i in range(3)]
-        d = [line_dir[:, m, i] for i in range(3)]
-        w = weights[:, m]
+        b = [line_base[..., m, i] for i in range(3)]
+        d = [line_dir[..., m, i] for i in range(3)]
+        w = weights[..., m]
         n = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
         n = torch.where(n < 1e-30, tiny, n)
         dn = [d[i] / n for i in range(3)]
@@ -622,15 +759,17 @@ def triage_refresh_fused_plain(line_base, line_dir, weights, anchor_R, anchor_t,
         (co02 * y[0] + co12 * y[1] + co22 * y[2]) * inv_det,
     ]
 
-    R = [anchor_R[:, i, j] for i in range(3) for j in range(3)]
-    dx, dy, dz = (Wp[i] - anchor_t[:, i] for i in range(3))
+    R = [anchor_R[..., i, j] for i in range(3) for j in range(3)]
+    dx, dy, dz = (Wp[i] - anchor_t[..., i] for i in range(3))
     Ci = [R[i] * dx + R[3 + i] * dy + R[6 + i] * dz for i in range(3)]
     z = torch.where(Ci[2].abs() < 1e-30, tiny, Ci[2])
-    u = (K[0, 0] * Ci[0] + K[0, 1] * Ci[1] + K[0, 2] * Ci[2]) / z
-    v = (K[1, 0] * Ci[0] + K[1, 1] * Ci[1] + K[1, 2] * Ci[2]) / z
+    Kb = [[K[..., i, j, None] for j in range(3)] for i in range(3)]  # over the tracks
+    Kib = [[Kinv[..., i, j, None] for j in range(3)] for i in range(3)]
+    u = (Kb[0][0] * Ci[0] + Kb[0][1] * Ci[1] + Kb[0][2] * Ci[2]) / z
+    v = (Kb[1][0] * Ci[0] + Kb[1][1] * Ci[1] + Kb[1][2] * Ci[2]) / z
     ok = (Ci[2] > 0) & (u >= 0) & (u < width) & (v >= 0) & (v < height)
 
-    cam = [Kinv[i, 0] * u + Kinv[i, 1] * v + Kinv[i, 2] for i in range(3)]
+    cam = [Kib[i][0] * u + Kib[i][1] * v + Kib[i][2] for i in range(3)]
     Wv = [R[3 * i] * cam[0] + R[3 * i + 1] * cam[1] + R[3 * i + 2] * cam[2] for i in range(3)]
     nrm = torch.sqrt(Wv[0] * Wv[0] + Wv[1] * Wv[1] + Wv[2] * Wv[2])
     nrm = torch.where(nrm < 1e-30, tiny, nrm)
@@ -638,36 +777,55 @@ def triage_refresh_fused_plain(line_base, line_dir, weights, anchor_R, anchor_t,
     return m_new, one / z, ok
 
 
-def triage_refresh_fused(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv,
-                         rcond, width, height):
+def _triage_check(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv):
+    dt = _float_dtype(weights)
+    B, F, M = weights.shape
+    for name, x, shape in (
+        ("line_base", line_base, (B, F, M, 3)), ("line_dir", line_dir, (B, F, M, 3)),
+        ("weights", weights, (B, F, M)), ("anchor_R", anchor_R, (B, F, 3, 3)),
+        ("anchor_t", anchor_t, (B, F, 3)), ("K", K, (B, 3, 3)), ("Kinv", Kinv, (B, 3, 3)),
+    ):
+        _check(x, name, shape, dt, weights.device)
+    return dt, B, F, M
+
+
+def _triage_launch(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv, rcond,
+                   width, height):
+    tensors = (line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv)
+    dt, B, F, M = _triage_check(*tensors)
+    dev = weights.device
+    m = torch.empty((B, F, 3), dtype=dt, device=dev)
+    rho = torch.empty((B, F), dtype=dt, device=dev)
+    ok = torch.empty((B, F), dtype=torch.bool, device=dev)
+    if B * F * M == 0:
+        return m, rho, ok
+    _launch("msckf_triage", dt, *(t.data_ptr() for t in tensors),
+            3.0 * rcond, float(width), float(height),
+            m.data_ptr(), rho.data_ptr(), ok.data_ptr(), F, M, B)
+    LAUNCHES["triage_refresh_fused"] += 1
+    return m, rho, ok
+
+
+@torch.library.custom_op("msckf::triage_refresh_fused", mutates_args=())
+def triage_refresh_fused(line_base: torch.Tensor, line_dir: torch.Tensor,
+                         weights: torch.Tensor, anchor_R: torch.Tensor,
+                         anchor_t: torch.Tensor, K: torch.Tensor, Kinv: torch.Tensor,
+                         rcond: float, width: float, height: float
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """line_base, line_dir (F, M, 3), weights (F, M) (zero where an
     observation is invalid), anchor_R (F, 3, 3), anchor_t (F, 3), K and
     Kinv (3, 3) -> refreshed bearing m (F, 3), inverse depth rho (F,), and
     ok (F,) bool: the point lies in front of the anchor camera and inside
     its image."""
-    dt = _float_dtype(weights)
-    F, M = weights.shape
-    dev = weights.device
-    for name, x, shape in (
-        ("line_base", line_base, (F, M, 3)), ("line_dir", line_dir, (F, M, 3)),
-        ("weights", weights, (F, M)), ("anchor_R", anchor_R, (F, 3, 3)),
-        ("anchor_t", anchor_t, (F, 3)), ("K", K, (3, 3)), ("Kinv", Kinv, (3, 3)),
-    ):
-        _check(x, name, shape, dt, dev)
-    if dev.type == "cpu":
-        return triage_refresh_fused_plain(line_base, line_dir, weights, anchor_R, anchor_t,
-                                          K, Kinv, rcond, width, height)
-    m = torch.empty((F, 3), dtype=dt, device=dev)
-    rho = torch.empty(F, dtype=dt, device=dev)
-    ok = torch.empty(F, dtype=torch.bool, device=dev)
-    if F * M == 0:
-        return m, rho, ok
-    _launch("msckf_triage", dt,
-            *(t.data_ptr() for t in (line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv)),
-            3.0 * rcond, float(width), float(height),
-            m.data_ptr(), rho.data_ptr(), ok.data_ptr(), F, M)
-    LAUNCHES["triage_refresh_fused"] += 1
-    return m, rho, ok
+    return _single_call(_triage_launch, _triage_check, triage_refresh_fused_plain,
+                        (line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv),
+                        (rcond, width, height))
+
+
+@triage_refresh_fused.register_vmap
+def _triage_vmap(info, in_dims, *args):
+    return _batched_call(_triage_launch, _triage_check, triage_refresh_fused_plain, info,
+                         in_dims, args, 7)
 
 
 # --------------------------------------------------------------------------
@@ -681,12 +839,13 @@ def update_terms_gamma_plain(H, Hf, r, P, sigma2, rcond):
     Pi = I - Hf W Hf^T (W the closed-form trace-normalised Tikhonov inverse
     of Hf^T Hf, with the TPU kernel's floors 1e-20 and 1e-38) applied to r
     and H, S = H~ P H~^T + sigma^2 I, and gamma = r~^T S^-1 r~ by the gating
-    kernel's pivot-row Cholesky. Returns (H~, r~, gamma)."""
-    R2 = H.shape[1]
+    kernel's pivot-row Cholesky. Returns (H~, r~, gamma). Takes any leading
+    batch axes (P with the same ones)."""
+    R2 = H.shape[-2]
     dt, dev = H.dtype, H.device
 
     def gram(i, j):
-        return torch.sum(Hf[:, :, i] * Hf[:, :, j], dim=1)
+        return torch.sum(Hf[..., i] * Hf[..., j], dim=-1)
 
     g00, g01, g02 = gram(0, 0), gram(0, 1), gram(0, 2)
     g11, g12, g22 = gram(1, 1), gram(1, 2), gram(2, 2)
@@ -708,14 +867,15 @@ def update_terms_gamma_plain(H, Hf, r, P, sigma2, rcond):
         torch.stack([co00, co01, co02], dim=-1),
         torch.stack([co01, co11, co12], dim=-1),
         torch.stack([co02, co12, co22], dim=-1),
-    ], dim=-2) * inv_det[:, None, None]  # (U, 3, 3)
+    ], dim=-2) * inv_det[..., None, None]  # (U, 3, 3)
 
-    w = torch.einsum("uij,uj->ui", W, torch.einsum("uri,ur->ui", Hf, r))
-    r_t = r - torch.einsum("uri,ui->ur", Hf, w)
-    C = torch.einsum("uij,ujd->uid", W, torch.einsum("uri,urd->uid", Hf, H))
-    H_t = H - torch.einsum("uri,uid->urd", Hf, C)
-    S = (H_t @ P) @ H_t.transpose(1, 2) + sigma2 * torch.eye(R2, dtype=dt, device=dev)
-    return H_t, r_t, batched_gating_gamma_plain(S, r_t)
+    w = torch.einsum("...uij,...uj->...ui", W, torch.einsum("...uri,...ur->...ui", Hf, r))
+    r_t = r - torch.einsum("...uri,...ui->...ur", Hf, w)
+    C = torch.einsum("...uij,...ujd->...uid", W, torch.einsum("...uri,...urd->...uid", Hf, H))
+    H_t = H - torch.einsum("...uri,...uid->...urd", Hf, C)
+    S = (H_t @ P[..., None, :, :]) @ H_t.mT + sigma2 * torch.eye(R2, dtype=dt, device=dev)
+    gamma = batched_gating_gamma_plain(S.reshape(-1, R2, R2), r_t.reshape(-1, R2))
+    return H_t, r_t, gamma.reshape(r_t.shape[:-1])
 
 
 def update_terms_masked_plain(H_t, r_t, passed):
@@ -723,9 +883,10 @@ def update_terms_masked_plain(H_t, r_t, passed):
     rows selected (not multiplied), so that an inf row of a rejected track
     adds exact zeros."""
     zero = torch.zeros((), dtype=H_t.dtype, device=H_t.device)
-    H_w = torch.where(passed[:, None, None], H_t, zero)
-    r_w = torch.where(passed[:, None], r_t, zero)
-    return torch.einsum("urd,ure->de", H_w, H_w), torch.einsum("urd,ur->d", H_w, r_w)
+    H_w = torch.where(passed[..., None, None], H_t, zero)
+    r_w = torch.where(passed[..., None], r_t, zero)
+    return (torch.einsum("...urd,...ure->...de", H_w, H_w),
+            torch.einsum("...urd,...ur->...d", H_w, r_w))
 
 
 def update_terms_fused_plain(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
@@ -738,34 +899,51 @@ def update_terms_fused_plain(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
     return A, c, passed
 
 
-def update_terms_fused(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
+def _update_terms_check(H, Hf, r, P, crit, sel_ok):
+    dt = _float_dtype(H)
+    B, U, R2, D = H.shape
+    dev = H.device
+    for name, x, shape in (("H", H, (B, U, R2, D)), ("Hf", Hf, (B, U, R2, 3)),
+                           ("r", r, (B, U, R2)), ("P", P, (B, D, D)), ("crit", crit, (B, U))):
+        _check(x, name, shape, dt, dev)
+    _check(sel_ok, "sel_ok", (B, U), torch.bool, dev)
+    return dt, B, U, R2, D
+
+
+def _update_terms_launch(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
+    dt, B, U, R2, D = _update_terms_check(H, Hf, r, P, crit, sel_ok)
+    dev = H.device
+    if R2 > GATING_MAX_N:
+        raise ValueError(f"update-terms kernel takes 2M <= {GATING_MAX_N}, got {R2}")
+    if B * U * R2 == 0:
+        return (torch.zeros((B, D, D), dtype=dt, device=dev),
+                torch.zeros((B, D), dtype=dt, device=dev),
+                torch.zeros((B, U), dtype=torch.bool, device=dev))
+    Ht = torch.empty((B, U, R2, D), dtype=dt, device=dev)
+    rt = torch.empty((B, U, R2), dtype=dt, device=dev)
+    A = torch.empty((B, D, D), dtype=dt, device=dev)
+    c = torch.empty((B, D), dtype=dt, device=dev)
+    passed = torch.empty((B, U), dtype=torch.bool, device=dev)
+    _launch("msckf_update_terms", dt,
+            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed)),
+            U, R2, D, B, float(sigma2), 3.0 * float(rcond))
+    LAUNCHES["update_terms_fused"] += 1
+    return A, c, passed
+
+
+@torch.library.custom_op("msckf::update_terms_fused", mutates_args=())
+def update_terms_fused(H: torch.Tensor, Hf: torch.Tensor, r: torch.Tensor, P: torch.Tensor,
+                       crit: torch.Tensor, sel_ok: torch.Tensor, sigma2: float, rcond: float
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """H (U, 2M, D), Hf (U, 2M, 3), r (U, 2M), P (D, D), crit (U,) with NaN
     for a track that must fail, sel_ok (U,) bool -> A (D, D), c (D,),
     passed (U,) bool. One call is two launches (per-track terms and gate,
     then the masked accumulation), counted as one."""
-    dt = _float_dtype(H)
-    U, R2, D = H.shape
-    dev = H.device
-    _check(H, "H", (U, R2, D), dt, dev)
-    _check(Hf, "Hf", (U, R2, 3), dt, dev)
-    _check(r, "r", (U, R2), dt, dev)
-    _check(P, "P", (D, D), dt, dev)
-    _check(crit, "crit", (U,), dt, dev)
-    _check(sel_ok, "sel_ok", (U,), torch.bool, dev)
-    if dev.type == "cpu":
-        return update_terms_fused_plain(H, Hf, r, P, crit, sel_ok, sigma2, rcond)
-    if R2 > GATING_MAX_N:
-        raise ValueError(f"update-terms kernel takes 2M <= {GATING_MAX_N}, got {R2}")
-    if U * R2 == 0:
-        return (torch.zeros((D, D), dtype=dt, device=dev), torch.zeros(D, dtype=dt, device=dev),
-                torch.zeros(U, dtype=torch.bool, device=dev))
-    Ht = torch.empty((U, R2, D), dtype=dt, device=dev)
-    rt = torch.empty((U, R2), dtype=dt, device=dev)
-    A = torch.empty((D, D), dtype=dt, device=dev)
-    c = torch.empty(D, dtype=dt, device=dev)
-    passed = torch.empty(U, dtype=torch.bool, device=dev)
-    _launch("msckf_update_terms", dt,
-            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed)),
-            U, R2, D, float(sigma2), 3.0 * float(rcond))
-    LAUNCHES["update_terms_fused"] += 1
-    return A, c, passed
+    return _single_call(_update_terms_launch, _update_terms_check, update_terms_fused_plain,
+                        (H, Hf, r, P, crit, sel_ok), (sigma2, rcond))
+
+
+@update_terms_fused.register_vmap
+def _update_terms_vmap(info, in_dims, *args):
+    return _batched_call(_update_terms_launch, _update_terms_check, update_terms_fused_plain,
+                         info, in_dims, args, 6)

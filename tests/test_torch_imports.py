@@ -4,7 +4,8 @@
   port or chip_smoke.py imports jax, flax or the JAX package;
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
   raise without a GPU instead of carrying on on the CPU;
-* the configurations the port does not take raise NotImplementedError;
+* the configurations the port does not take raise NotImplementedError
+  (beside settings it does take: the NS gate, the masked prune);
 * chip_smoke.py refuses to run without a GPU or without the package.
 """
 
@@ -30,7 +31,8 @@ FORBIDDEN = ("jax", "flax", "msckf_tpu")
 def test_import_leaves_jax_and_flax_out():
     code = (
         "import sys, msckf_tpu_torch, msckf_tpu_torch.filter.msckf, "
-        "msckf_tpu_torch.ops.kernels, msckf_tpu_torch.data.stream; "
+        "msckf_tpu_torch.ops.kernels, msckf_tpu_torch.data.stream, "
+        "msckf_tpu_torch.parallel.batched; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msckf_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -93,14 +95,31 @@ def test_entry_points_raise_without_gpu(monkeypatch, small):
     assert final.P.device.type == "cpu"
 
 
+def test_batched_entry_points_raise_without_gpu(monkeypatch, small):
+    cfg, st = small
+    std = to_device(st, cfg, device="cpu")
+    states = mt.batched_initial_state(cfg, 2, st.R_init, device="cpu")
+    prefix = {k: torch.stack([v, v]) for k, v in std.prefix.items()}
+    frames = {k: torch.stack([v, v]) for k, v in std.frames.items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.batched_initial_state(cfg, 2, st.R_init)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.batched_run_sequence(cfg, states, prefix, frames)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.batched_frame_step(cfg, states, {k: v[:, 0] for k, v in frames.items()})
+    final, _, _ = mt.batched_run_sequence(cfg, states, prefix, frames, device="cpu")
+    assert final.P.device.type == "cpu" and final.P.shape[0] == 2
+
+
 @pytest.mark.parametrize("overrides", [
     {"gain_solver": "ns"},
     {"triangulation": "gn", "use_pallas_triage": True},
-    {"gating_solver": "ns"},
+    {"gating_solver": "ns", "correction_dtype": "compensated"},
     {"gain_solver": "chol"},
     {"correction_dtype": "compensated"},
     {"triangulation": "gn"},
-    {"prune_path": "masked"},
+    {"prune_path": "masked", "gain_solver": "ns"},
     {"use_pallas": False},
 ])
 def test_unported_configurations_raise(small, overrides):

@@ -309,12 +309,15 @@ def test_triage_kernel_matches_jax(mid, pre_update, interpret_lane, monkeypatch)
 @pytest.mark.parametrize("which", ["triage-valid", "all-tracks"])
 @pytest.mark.parametrize("overrides", [
     {"update_kernel": "fused"}, {"update_kernel": "xla"}, {"gating_solver": "xla"},
-], ids=["fused", "xla", "xla-gate"])
+    {"gating_solver": "ns", "gating_ns_iters": 12},
+], ids=["fused", "xla", "xla-gate", "ns-gate"])
 def test_build_update_terms_variants_match_jax(mid, pre_update, interpret_lane, overrides,
                                                which):
     """The fused update-terms kernel (its plain version against the Pallas
     kernel in interpret mode) and the hybrid terms with the batched-Cholesky
-    gate, on the masks of test_build_update_terms_matches_jax."""
+    gate or the Newton-Schulz gate, on the masks of
+    test_build_update_terms_matches_jax: the same gate decisions (A and c
+    sum over the tracks that pass)."""
     s, tri = pre_update
     s = s.replace(tracks=tri.tracks)
     caps = {**CAPS, **overrides}
