@@ -13,11 +13,14 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               inputs: equal gate/verification/triage decisions, floats
               within the stated tolerances; CUDA-event times of kernel,
               plain version and (gating) a library yardstick; the bound for
-              each. Then each kernel's batched form (its vmap rule's one
-              launch for B = 32 sequences; B = 4 for the update terms in
-              float64): bitwise equal to B single launches, within the same
-              tolerances of the plain version over the batch axis; its
-              times and bound.
+              each. The update terms also at three ragged shapes (single
+              and batched at B = 4, bitwise), with the device time of each
+              of their three launches and a yardstick: the same products
+              by torch.matmul. Then each kernel's batched form (its vmap
+              rule's one launch for B = 32 sequences; B = 4 for the update
+              terms in float64): bitwise equal to B single launches, within
+              the same tolerances of the plain version over the batch
+              axis; its times and bound.
 3. parity   — the test capacities in float64, 600 ticks of the circle, on
               the card and on the CPU, in the default configuration, with
               update_kernel="fused" and with the plain triage
@@ -30,11 +33,11 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               circle: error < 0.2 m, no overflow, every kernel launched as
               often as the frame loop predicts; host syncs, and a profile.
 5. fused    — the same with update_kernel="fused": error, overflow,
-              launches and host syncs.
+              launches, host syncs and a profile.
 6. plain    — the same with the plain triage (use_pallas_triage=False):
               error, overflow, launches and host syncs.
-   Then frames/s of each configuration driven above, 3 runs each: the
-   driven run, then two more in turns.
+   Then frames/s of each configuration driven above, 2 runs each: the
+   driven run, then one more in reverse order.
 7. xla      — a short run with update_kernel="xla" (the batched-Cholesky
               gate): launches, and no synchronizing call beyond the loop's.
 8. batched  — batched_run_sequence over 32 seeds of the circle at the
@@ -44,7 +47,8 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               kernels): every sequence within 0.2 m, no overflow, one launch
               per call site and frame (not one per sequence), no functorch
               fallback to a per-sequence loop, no host sync; aggregate
-              frames/s in turns with the single default loop; a profile.
+              frames/s in turns with the single default loop; profiles
+              of the default and the fused batched loop.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -92,6 +96,14 @@ def update_terms_flops(U: int, R2: int, D: int) -> float:
     return U * per_track + U * R2 * D * (D + 1) + 2 * U * R2 * D
 
 TOL = {"float32": 1e-4, "float64": 1e-10}
+
+# the three launches of one update_terms_fused call (update_terms.cu)
+UPDATE_LAUNCHES = ("update_track_kernel", "update_partial_kernel", "update_reduce_kernel")
+# (U, 2M, D) of the ragged update-terms checks: the CPU tests' two shapes
+# (tests/test_torch_kernels.py, tests/test_torch_batched_kernels.py) and one
+# of several chunks with D a multiple of 16 bytes but not of the 64-column tile
+RAGGED_UPDATE_SHAPES = ((13, 12, 27), (12, 16, 63), (37, 40, 100))
+RAGGED_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
@@ -409,7 +421,8 @@ def phase_kernels(torch, K, cfg, rng):
         log(f"gating        U={U} n={n}: max abs {ea:.3e} rel {er:.3e}; {n_pass}/{U} pass "
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, cholesky_ex+cholesky_solve {lib:.4f} ms, bound {bms:.6f} ms ({bby})")
-        rows["batched_gating_gamma"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=lib)
+        rows["batched_gating_gamma"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
+                                            by=bby, lib=lib)
 
         # 2. verification
         F, M = verification[1].shape[:2]
@@ -438,7 +451,8 @@ def phase_kernels(torch, K, cfg, rng):
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
         log(_per_output(errs))
-        rows["verification_scores"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+        rows["verification_scores"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
+                                           by=bby, lib=None)
 
         # 3. P15 recurrence
         B = p15[1].shape[0]
@@ -456,7 +470,8 @@ def phase_kernels(torch, K, cfg, rng):
             f"(kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, bound {bms:.8f} ms ({bby})")
         log(_per_output(errs))
-        rows["p15_recurrence_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+        rows["p15_recurrence_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
+                                            by=bby, lib=None)
 
         # 4. propagation block (B = 1 as on the path; the first-step null
         # state and a padding tick are checked too)
@@ -485,7 +500,8 @@ def phase_kernels(torch, K, cfg, rng):
             f"tick); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), plain {plain:.4f} ms, "
             f"bound {bms:.8f} ms ({bby})")
         log(_per_output(errs))
-        rows["propagate_block_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+        rows["propagate_block_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
+                                             by=bby, lib=None)
 
         # 5. triage (bitwise equal by construction: no FMA contraction)
         rcond = default_rcond(dtype)
@@ -508,7 +524,8 @@ def phase_kernels(torch, K, cfg, rng):
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
             f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
         log(_per_output(errs))
-        rows["triage_refresh_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+        rows["triage_refresh_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
+                                            by=bby, lib=None)
 
         # 6. fused update terms. The kernel builds S by its own loops and the
         # plain version by matrix products, so gamma differs by round-off:
@@ -518,43 +535,147 @@ def phase_kernels(torch, K, cfg, rng):
         U, n2, D = H.shape
         sigma2 = cfg.sigma_image**2
         uargs = (H, Hf, ru, P, crit, sel_ok, sigma2, rcond)
-        A_k, c_k, p_k = K.update_terms_fused(*uargs)
-        A_k2, c_k2, _ = K.update_terms_fused(*uargs)
-        H_t, r_t, gamma = K.update_terms_gamma_plain(H, Hf, ru, P, sigma2, rcond)
-        p_p = sel_ok & (gamma <= crit)
+        out = K.update_terms_fused(*uargs)
+        again = K.update_terms_fused(*uargs)
         torch.cuda.synchronize()
-        check(torch.equal(A_k, A_k2) and torch.equal(c_k, c_k2), "update terms: runs differ")
+        p_k = out[2]
+        check(all(same_bits(torch, x, y) for x, y in zip(out, again)), "update terms: runs differ")
+        H_t, _, gamma = K.update_terms_gamma_plain(H, Hf, ru, P, sigma2, rcond)
         check(not torch.isfinite(gamma[5]) and not p_k[5], "update terms: a non-PD S passed")
         check(not p_k[2] and not p_k[~sel_ok].any(), "update terms: NaN crit or padding passed")
-        near = []
-        for u in torch.nonzero(p_k != p_p)[:, 0].tolist():
-            g, cr = float(gamma[u]), float(crit[u])
-            check(abs(g - cr) <= tol * abs(cr),
-                  f"update terms: gate decision differs on track {u} (gamma {g}, crit {cr})")
-            near.append(f"track {u} (gamma {g:.6g}, crit {cr:.6g})")
-        A_p, c_p = K.update_terms_masked_plain(H_t, r_t, p_k)
-        errs = {"A": assert_close("update terms A", A_k, A_p, tol, floor=True),
-                "c": assert_close("update terms c", c_k, c_p, tol, floor=True)}
+        errs, near = check_update_terms(torch, K, "update terms", out, update, sigma2, rcond, tol)
         ea, er = _worst(errs)
         ms = time_ms(torch, lambda: K.update_terms_fused(*uargs))
-        launch_names = ("update_track_kernel", "update_accumulate_kernel")
-        dev_ms = kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), launch_names)
-        split = ", ".join(
-            f"{m} {_fmt_ms(kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), m))}"
-            for m in launch_names)
+        dev_ms = kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), UPDATE_LAUNCHES)
+        split = launch_split(torch, lambda: K.update_terms_fused(*uargs))
         plain = time_ms(torch, lambda: K.update_terms_fused_plain(*uargs))
+        mm = update_matmul_ms(torch, H_t, P)
         bms, bby = kernel_bound("update_terms_fused", (U, n2, D), dtype_name)
         log(f"update terms  U={U} 2M={n2} D={D}: max abs {ea:.3e} rel {er:.3e}; "
             f"{int(p_k.sum())}/{U} pass, "
             + (f"decisions differ within tolerance of the threshold on {near}; " if near
                else "decisions equal; ")
             + f"kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}: {split}), "
-            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
+            f"plain {plain:.4f} ms, matmul yardstick {mm:.4f} ms, bound {bms:.6f} ms ({bby})")
         log(_per_output(errs))
-        rows["update_terms_fused"] = dict(err=ea, ms=ms, plain=plain, bound=bms, by=bby, lib=None)
+        rows["update_terms_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
+                                          by=bby, lib=None, matmul=mm)
+        check_update_ragged(torch, K, dtype_name, rng)
         if dtype_name == "float32":
             rows32 = dict(rows)
     return rows32
+
+
+def launch_split(torch, fn) -> str:
+    """Device time per call of each of update_terms_fused's launches."""
+    return ", ".join(f"{m} {_fmt_ms(kernel_only_ms(torch, fn, m))}" for m in UPDATE_LAUNCHES)
+
+
+def update_matmul_ms(torch, H_t, P) -> float:
+    """Yardstick beside the update-terms kernel (never called by the port):
+    CUDA-event time of the three products the hybrid path computes for the
+    same work (filter/update.py:236-237, 250), by torch.matmul in float32
+    with TF32 off: H~P over all tracks, S per track, A over all rows.
+    H_t (..., U, 2M, D), P (..., D, D)."""
+    Hf = H_t.float().contiguous()
+    Pf = P.float().unsqueeze(-3)
+    rows = Hf.flatten(-3, -2)
+
+    def run():
+        S = torch.matmul(torch.matmul(Hf, Pf), Hf.transpose(-1, -2))
+        return S, torch.matmul(rows.transpose(-1, -2), rows)
+
+    return time_ms(torch, run)
+
+
+def ragged_update_inputs(torch, dtype, rng, U, R2, D):
+    """The CPU tests' update-terms inputs (tests/test_torch_kernels.py::
+    _update_terms_inputs) on the card: rows beyond 8 zero (padding
+    observations), track 1's threshold fails, track 2's is NaN, track U - 1
+    is an unused slot (sel_ok False), and an inf Jacobian entry in track 3
+    must fail the gate and add nothing to A and c."""
+    dev = torch.device(DEVICE)
+    Hf = rng.normal(size=(U, R2, 3))
+    H = rng.normal(size=(U, R2, D)) * 0.5
+    r = rng.normal(size=(U, R2)) * 0.1
+    Hf[:, 8:] = 0.0
+    H[:, 8:] = 0.0
+    r[:, 8:] = 0.0
+    H[3, 2, 5] = np.inf
+    Pm = rng.normal(size=(D, D)) * 0.05
+    crit = np.full(U, 50.0)
+    crit[1] = 1e-6
+    crit[2] = np.nan
+    sel_ok = np.ones(U, bool)
+    sel_ok[U - 1] = False
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in (H, Hf, r, Pm @ Pm.T, crit)) \
+        + (torch.as_tensor(sel_ok, device=dev),)
+
+
+def check_update_terms(torch, K, name, out, args, sigma2, rcond, tol):
+    """One update_terms_fused result against the plain version: decisions
+    equal, or different only where gamma lies within the tolerance of its
+    threshold; A and c on the kernel's decisions within rtol (scaled by
+    their largest entry). Returns (errors, tracks decided near threshold)."""
+    A_k, c_k, p_k = out
+    H, Hf, ru, P, crit, sel_ok = args
+    H_t, r_t, gamma = K.update_terms_gamma_plain(H, Hf, ru, P, sigma2, rcond)
+    p_p = sel_ok & (gamma <= crit)
+    near = []
+    for u in torch.nonzero(p_k != p_p)[:, 0].tolist():
+        g, cr = float(gamma[u]), float(crit[u])
+        check(abs(g - cr) <= tol * abs(cr),
+              f"{name}: gate decision differs on track {u} (gamma {g}, crit {cr})")
+        near.append(f"track {u} (gamma {g:.6g}, crit {cr:.6g})")
+    A_p, c_p = K.update_terms_masked_plain(H_t, r_t, p_k)
+    return {"A": assert_close(f"{name} A", A_k, A_p, tol, floor=True),
+            "c": assert_close(f"{name} c", c_k, c_p, tol, floor=True)}, near
+
+
+def check_update_ragged(torch, K, dtype_name, rng):
+    """update_terms_fused at shapes that are not multiples of its tiles
+    (ragged columns, rows, panels and chunks), single and batched: against
+    the plain version, the padding, NaN, failing and inf tracks rejected,
+    repeated calls bitwise equal, and a batched launch of RAGGED_BATCH
+    sequences bitwise equal to its single launches."""
+    dtype = getattr(torch, dtype_name)
+    tol = TOL[dtype_name]
+    sigma2, rcond = 0.01, 1e-12
+    for U, R2, D in RAGGED_UPDATE_SHAPES:
+        draws = [ragged_update_inputs(torch, dtype, rng, U, R2, D) for _ in range(RAGGED_BATCH)]
+        singles = []
+        errs, near = {}, []
+        for b, args in enumerate(draws):
+            out = K.update_terms_fused(*args, sigma2, rcond)
+            again = K.update_terms_fused(*args, sigma2, rcond)
+            torch.cuda.synchronize()
+            check(all(same_bits(torch, x, y) for x, y in zip(out, again)),
+                  f"update terms ragged {U}x{R2}x{D}: runs differ")
+            check(not out[2][[1, 2, 3, U - 1]].any(),
+                  f"update terms ragged {U}x{R2}x{D}: a failing, NaN, inf or unused track passed")
+            check(bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all()),
+                  f"update terms ragged {U}x{R2}x{D}: A or c not finite")
+            e, nr = check_update_terms(torch, K, f"update terms ragged {U}x{R2}x{D}", out, args,
+                                       sigma2, rcond, tol)
+            errs.update({f"{k}{b}": v for k, v in e.items()})
+            near += nr
+            singles.append(out)
+        stacked = [torch.stack([d[j] for d in draws]) for j in range(6)]
+        K.reset_launches()
+        out = torch.func.vmap(lambda *a: K.update_terms_fused(*a, sigma2, rcond))(*stacked)
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["update_terms_fused"] == 1,
+              f"update terms ragged batched: {K.LAUNCHES['update_terms_fused']} launches")
+        for b, one in enumerate(singles):
+            check(all(same_bits(torch, o[b], w) for o, w in zip(out, one)),
+                  f"update terms ragged {U}x{R2}x{D} batched: sequence {b} differs from its "
+                  "single launch")
+        ea, er = _worst(errs)
+        log(f"update terms  ragged U={U} 2M={R2} D={D}: max abs {ea:.3e} rel {er:.3e} over "
+            f"{RAGGED_BATCH} draws; "
+            + (f"decisions near the threshold on {near}; " if near else "decisions equal; ")
+            + f"padding, NaN, failing and inf tracks rejected; repeated calls and the batched "
+            f"launch (B={RAGGED_BATCH}) bitwise equal to the single ones")
 
 
 def same_bits(torch, a, b) -> bool:
@@ -611,8 +732,7 @@ def phase_kernels_batched(torch, K, cfg, rng):
              (rcond, cfg.width, cfg.height), K.triage_refresh_fused_plain, "triage_kernel",
              (F, M)),
             ("update_terms_fused", K.update_terms_fused, (H, Hf, ru, P, ucrit, sel_ok),
-             (sigma2, rcond), update_plain, ("update_track_kernel", "update_accumulate_kernel"),
-             (Uu, n2, D)),
+             (sigma2, rcond), update_plain, UPDATE_LAUNCHES, (Uu, n2, D)),
         )
         log(f"-- batched kernels, {dtype_name} (tolerance rtol {tol}; update terms at "
             f"B={H.shape[0]}, the others at B={BATCH})")
@@ -638,6 +758,7 @@ def phase_kernels_batched(torch, K, cfg, rng):
                       f"{name} batched: sequence {b} differs from its single launch")
             if name == "update_terms_fused":
                 upd_passed = out[2]
+                upd_Ht = K.update_terms_gamma_plain(*tensors[:4], *scalars)[0]
             want = plain(*tensors, *scalars)
             want = want if isinstance(want, tuple) else (want,)
             errs = {}
@@ -654,7 +775,11 @@ def phase_kernels_batched(torch, K, cfg, rng):
             dev_ms = kernel_only_ms(torch, run, match)
             plain_ms = time_ms(torch, lambda: plain(*tensors, *scalars))
             bms, bby = kernel_bound(name, dims, dtype_name, Bn)
-            lib = None
+            lib = mm = None
+            split = ""
+            if name == "update_terms_fused":
+                mm = update_matmul_ms(torch, upd_Ht, tensors[3])
+                split = f" ({launch_split(torch, run)}), matmul yardstick {mm:.4f} ms"
             if name == "batched_gating_gamma":  # the single check's yardstick, all systems
                 Sf, rf = S.flatten(0, 1), r.flatten(0, 1)
 
@@ -665,11 +790,11 @@ def phase_kernels_batched(torch, K, cfg, rng):
                 lib = time_ms(torch, library)
             log(f"{name:22s} batched B={Bn}: bitwise equal to {Bn} single launches; max abs "
                 f"{ea:.3e} rel {er:.3e} vs plain; call {ms:.4f} ms (kernel only "
-                f"{_fmt_ms(dev_ms)}), plain {plain_ms:.4f} ms, "
+                f"{_fmt_ms(dev_ms)}{split}), plain {plain_ms:.4f} ms, "
                 + (f"cholesky_ex+cholesky_solve {lib:.4f} ms, " if lib is not None else "")
                 + f"bound {bms:.6f} ms ({bby})")
             rows[name] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain_ms, bound=bms, by=bby,
-                              lib=lib, B=Bn)
+                              lib=lib, B=Bn, matmul=mm)
         if dtype_name == "float32":
             rows32 = dict(rows)
     return rows32
@@ -879,9 +1004,9 @@ def phase_main(torch, pkg, K, seq):
     return run, C, launches, first_s
 
 
-def phase_driven(torch, pkg, K, seq, label, **overrides):
+def phase_driven(torch, pkg, K, seq, label, profile=False, **overrides):
     """A whole-circle configuration other than the default: its driven run
-    and the sync check."""
+    and the sync check; with ``profile``, a 20-frame profile."""
     cfg = pkg.reference_experiment_config(**overrides)
     run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, label)
     syncs, frames = stats.host_syncs, stats.frames
@@ -889,18 +1014,21 @@ def phase_driven(torch, pkg, K, seq, label, **overrides):
     log(f"{label}: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
         f"loop's count: {syncs} over {frames} frames); PyTorch sync-debug warnings over one "
         f"run: {sum(sites.values())}, by site {sites}")
+    if profile:
+        std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * 20)
+        profile_window(torch, prof_run, std.frames["imu_ts"].shape[0], label)
     return run, C, launches, first_s
 
 
 def compare_rates(torch, kernel_rows, driven: dict):
-    """Frames/s over the whole circle of each driven configuration, 3 runs
-    each: the driven run (in the order the phases ran), then two more in
-    turns (CBA ABC) within this call; the kernels' share of the frame time
-    from launches x kernel call time."""
+    """Frames/s over the whole circle of each driven configuration, 2 runs
+    each: the driven run (in the order the phases ran), then one more in
+    reverse order (CBA) within this call; the kernels' share of the frame
+    time from launches x kernel call time."""
     runs = {name: run for name, (run, _, _, _) in driven.items()}
     C = next(iter(driven.values()))[1]
     names = list(runs)
-    times = timed_runs(torch, runs, names[::-1] + names)
+    times = timed_runs(torch, runs, names[::-1])
     for name in names:
         times[name].insert(0, driven[name][3])
     med = {name: float(np.median(t)) for name, t in times.items()}
@@ -913,7 +1041,7 @@ def compare_rates(torch, kernel_rows, driven: dict):
     if "default" in med:
         ratios = ", ".join(f"{name} / default {med['default'] / med[name]:.3f}"
                            for name in names if name != "default")
-        order = names + names[::-1] + names
+        order = names + names[::-1]
         log(f"rates: frames/s ratios {ratios} (runs in turns "
             f"{''.join('ABC'[names.index(n)] for n in order)}, the first of each the "
             f"driven run)")
@@ -1067,8 +1195,9 @@ def phase_batched(torch, pkg, K, seq, single=None):
             f"{ {k: round(v / C, 3) for k, v in launches.items() if v} } per frame)")
         return run, C, seconds, launches
 
+    fused_cfg = pkg.reference_experiment_config(update_kernel="fused")
     run_b, C, first_s, launches = drive_batched("batched", base)
-    fused = drive_batched("batched fused", pkg.reference_experiment_config(update_kernel="fused"))
+    fused = drive_batched("batched fused", fused_cfg)
     kernels = drive_batched("batched kernels", base, max_ticks=400, dispatch_auto=False)
     launches["update_terms_fused"] = fused[3]["update_terms_fused"]
     for name in ("triage_refresh_fused", "batched_gating_gamma"):
@@ -1083,8 +1212,7 @@ def phase_batched(torch, pkg, K, seq, single=None):
     if single is not None:
         run_s, C_s, single_first = single
         check(C_s == C, "batched: the single and batched circles differ in frames")
-        times = timed_runs(torch, {"batched": run_b, "single": run_s},
-                           ["single", "batched", "batched", "single"])
+        times = timed_runs(torch, {"batched": run_b, "single": run_s}, ["single", "batched"])
         times["batched"].insert(0, first_s)
         tb, ts = float(np.median(times["batched"])), float(np.median(times["single"]))
         log(f"rates: batched B={BATCH}: {BATCH * C / tb:.1f} aggregate frames/s, "
@@ -1093,21 +1221,25 @@ def phase_batched(torch, pkg, K, seq, single=None):
             f"turns: {C / ts:.2f} frames/s, {ts / C * 1e3:.3f} ms/frame (runs "
             f"{[round(x, 4) for x in times['single']]} s); batched frame / single frame "
             f"{tb / ts:.3f}, aggregate / single frames/s {BATCH * ts / tb:.3f} (turns: "
-            f"driven batched run, then single, batched, batched, single)")
-    _, prof_run = make_run(base, 20 + 10 * 20)
-    profile_window(torch, prof_run, 20, "batched")
+            f"driven batched run, then single, batched)")
+    for label, cfg in (("batched", base), ("batched fused", fused_cfg)):
+        _, prof_run = make_run(cfg, 20 + 10 * 20)
+        profile_window(torch, prof_run, 20, label)
     return launches
 
 
 def profile_window(torch, run, n_frames: int, label: str):
     """Device busy share and the largest device-time items over one run of
-    ``n_frames`` camera frames (torch.profiler; a warm-up run first)."""
+    ``n_frames`` camera frames (torch.profiler, device activity only: the
+    host's op events would cost more to record and sort than the run; a
+    warm-up run first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start = time.perf_counter()
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1122,7 +1254,8 @@ def profile_window(torch, run, n_frames: int, label: str):
     top = sorted(dev, key=lambda e: -e.device_time_total)[:8]
     log(f"{label} profile: {C} frames, {wall_ms / C:.3f} ms/frame under the profiler, device "
         f"busy {busy_ms / C:.3f} ms/frame ({busy_ms / wall_ms * 100:.1f}% busy, "
-        f"{100 - busy_ms / wall_ms * 100:.1f}% idle), {n_kernels / C:.0f} device ops/frame")
+        f"{100 - busy_ms / wall_ms * 100:.1f}% idle), {n_kernels / C:.0f} device ops/frame "
+        f"(the profile took {time.perf_counter() - start:.1f} s)")
     for e in top:
         log(f"{label} profile:   {e.device_time_total / 1e3 / C:.4f} ms/frame  "
             f"{e.count / C:.1f}/frame  {e.key[:90]}")
@@ -1199,7 +1332,8 @@ def main(argv=None) -> int:
     if "fused" in phases:
         check(kernel_rows is not None, "the fused phase needs the kernels phase")
         phase("fused")
-        driven["fused"] = phase_driven(torch, pkg, K, seq, "fused", update_kernel="fused")
+        driven["fused"] = phase_driven(torch, pkg, K, seq, "fused", profile=True,
+                                       update_kernel="fused")
         launches["update_terms_fused"] = driven["fused"][2]["update_terms_fused"]
     if "plain" in phases:
         check(kernel_rows is not None, "the plain phase needs the kernels phase")
@@ -1238,6 +1372,7 @@ def main(argv=None) -> int:
         }
 
         def entry(name, row, launched, line_no, label):
+            extra = {"matmul_ms": row["matmul"]} if row.get("matmul") is not None else {}
             return {
                 "name": label,
                 "route": "cuda",
@@ -1250,6 +1385,8 @@ def main(argv=None) -> int:
                 "bound_ms": row["bound"],
                 "bound_by": row["by"],
                 "library_ms": row["lib"],
+                "dev_ms": row["dev"],
+                **extra,
             }
 
         line = {"kernels": [

@@ -12,74 +12,181 @@
 // H~ = H - Hf W Hf^T H; S = H~ P H~^T + sigma^2 I with the full D x D P;
 // gamma = r~^T S^-1 r~ by block_gating_gamma (common.cuh, the gating
 // kernel's pivot-row Cholesky); passed = sel_ok & (gamma <= crit), where a
-// NaN crit or gamma fails. Rows of a rejected track are selected out (not
+// NaN crit or gamma fails. Rows of a rejected track are skipped (never
 // multiplied by 0), so an inf row adds exact zeros to A and c.
 //
-// Design, two launches counted as one call, each over a grid with a second
-// axis of B sequences: the batched form (the JAX custom_vmap rule's
-// (B, tiles) grid, pallas_kernels.py:544-558) is blockIdx.y, a single call
-// is B = 1, and each sequence reads and writes at its own base offsets and
-// sums in the same fixed order, so a batched launch gives each sequence
-// the bits of a single launch:
-//   1. update_track_kernel, one block per track. H~ is formed in shared
-//      memory and written to a global scratch (U, 2M, D) with r~; S is built
-//      in row panels of kPanel rows (H~[panel] P, then against all of H~), so H~,
-//      S and one panel of H~ P fit in shared memory (168 KB in f64 at
-//      2M = 64, D = 192: the dynamic-shared-memory opt-in). Then the gate.
-//   2. update_accumulate_kernel: one block per 32 x 32 tile of A and one per
-//      32 entries of c; each sums over all U * 2M rows of the scratch in row
-//      order, masked by passed. No atomics: repeated runs give the same bits.
-// The filter calls it over the camera span (D = 6N = 192 at the reference
-// capacities; the IMU columns of H are zero). What bounds it on the H100
-// there, with U = 128, 2M = 64: ~1.04 GFLOP (H~ P per track, the symmetric
-// S per track and the symmetric A over 8192 rows) against ~13 MB moved in
-// f64: operations, ~0.016 ms at 67 TFLOP/s (f32 outside the tensor cores,
-// f64 on them). This first design runs on scalar FMAs with one block per
-// track (launch 1) and 42 blocks (launch 2), far from that; later work:
-// tensor-core tiles (DMMA in f64), more blocks per track, a split-K
-// accumulation, and only one triangle of S and A.
+// What bounds it on the H100 at the filter's shapes (U = 128 tracks,
+// 2M = 64 rows, D = 6N = 192 camera columns): ~1.04 GFLOP (H~ P per track,
+// the symmetric S per track and the symmetric A over 8192 rows) against
+// ~13 MB moved in f64: operations, 0.0156 ms in f32 at 67 TFLOP/s.
+//
+// Design: three launches counted as one call, each over a grid whose second
+// axis is the B sequences of a batched call (blockIdx.y; a single call is
+// B = 1). Each sequence reads and writes at its own offsets and sums in a
+// fixed order that depends on U and 2M only, so a batched launch gives each
+// sequence the bits of its single launch, and repeated calls the same bits.
+//   1. update_track_kernel, one block of 256 threads per track (the gate
+//      needs all of S_u in one block). H is copied into shared memory with
+//      cp.async (16-byte copies when D is a multiple of 16 bytes) while the
+//      block reads Hf and r; the projector forms H~ in place and writes H~
+//      and r~ to a scratch (16-byte stores where the row length allows).
+//      H~P is built in column panels of 96 (two at D = 192): P streams
+//      through two shared-memory stages of 16 rows x 96 columns, filled by
+//      cp.async one stage ahead of the arithmetic (the first during the
+//      projector), so every element of P is read from L2 once per track.
+//      Each thread holds a 4 x 6 register tile of the panel (rows
+//      t/16 + 16i, columns 2(t%16) + 32j + {0,1}): per 16-byte load of
+//      H~ (broadcast within the warp) and three pair loads of P it does
+//      24 FMAs per k. The panel then goes to shared memory and each thread
+//      adds its 4 x 4 tile of S (rows t/16 + 16i, columns t%16 + 16j; both
+//      triangles, as the gate reads the pivot ROW) over the panel's
+//      columns, 16 FMAs per two 16-byte loads. H~'s row stride is an odd
+//      number of 16-byte words, so the 8 rows read in one phase of a
+//      16-byte load hit 8 distinct bank groups. S stays in registers across
+//      panels, then goes to shared memory (over the panel's space) for
+//      block_gating_gamma, unchanged.
+//      Shared memory at D = 192: 92,992 bytes in f32 (two blocks per SM),
+//      184,960 in f64 (one), by the dynamic-shared-memory opt-in.
+//   2. update_partial_kernel, a split over rows of the lower triangle of A:
+//      the U tracks are cut into chunks of whole tracks (the wrapper's plan,
+//      ops/kernels.py::update_chunk_plan: 8 tracks = 512 rows at 2M = 64,
+//      the TPU kernel's own tile), and one block computes one 64 x 64 tile
+//      of A's lower triangle for one chunk: 6 tiles x 16 chunks = 96 blocks
+//      at the filter's shapes, 3,072 at B = 32. The chunk's gate decisions
+//      are one warp ballot; only the rows of passed tracks are staged, in
+//      units of 32 rows, double-buffered by cp.async. Each thread holds a
+//      4 x 4 register tile, 16 FMAs per two 16-byte loads. The diagonal
+//      tiles also stage r~ and sum the chunk's part of c. The partials go to
+//      a (B, chunks, D, D) and a (B, chunks, D) scratch that the wrapper
+//      allocates. Shared memory: 34,048 bytes in f32, 68,096 in f64.
+//   3. update_reduce_kernel sums the partials in chunk order, one thread per
+//      entry of A (read from the lower triangle, so A is bitwise symmetric)
+//      and of c. No atomics anywhere.
+// f32 runs on the FMA units (no TF32), f64 on DFMA. What still holds it
+// back: the gate's serial pivots (block_gating_gamma, 64 steps of two
+// barriers per track) and no tensor cores (DMMA in f64 is later work).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPanel = 16;  // rows of S built per pass
-constexpr int kTile = 32;   // edge of an A tile in launch 2
+constexpr int kRows = kGateMaxN;  // rows of H~ a track block holds (2M padded)
+constexpr int kCols = 96;         // columns of one panel of H~ P
+constexpr int kK = 16;            // rows of P per stage
+constexpr int kTile = 64;         // edge of an A tile in launch 2
+constexpr int kUnit = 32;         // rows per stage in launch 2
+constexpr int kMaxChunkTracks = 32;  // a chunk's decisions are one warp ballot
 
-// Row stride of H~ in shared memory: odd, so that the S loop's threads,
-// which read one column of consecutive rows, hit distinct banks (at
-// D = 192 = 6 * 32 a stride of D puts a whole warp on one bank)
-__host__ __device__ inline int h_stride(int D) { return D | 1; }
+// 16 bytes of T, and a pair, for vector loads and stores
+template <typename T>
+struct alignas(16) V16 {
+  T v[16 / sizeof(T)];
+};
+template <typename T>
+struct alignas(2 * sizeof(T)) V2 {
+  T v[2];
+};
 
-__host__ __device__ inline size_t track_smem_elems(int R2, int D) {
-  return (size_t)R2 * h_stride(D)  // H, then H~
-         + (size_t)R2 * 3      // Hf
-         + R2                  // r, then r~
-         + kGateMaxN           // the gate's working copy of r~
-         + 3 * (size_t)D       // C = W Hf^T H
-         + (size_t)kPanel * D  // one panel of H~ P
-         + (size_t)R2 * R2     // S
-         + kGateNB * kGateMaxN + kGateMaxN  // the gate's panel and pivot row
-         + 16;                 // 9 sums, 6 entries of W
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts the copy of a rows x cols block of a row-major global matrix (row
+// stride lds) into shared memory (row stride ldd): entries with row <
+// rows_valid and col < cols_valid by cp.async, the others set to zero. cols
+// and ldd are multiples of V; with vec (D a multiple of V, so that every row
+// starts on 16 bytes) each copy moves 16 bytes, else one element.
+template <typename T>
+__device__ void load_async(T* dst, int ldd, const T* src, size_t lds, int rows, int rows_valid,
+                           int cols, int cols_valid, bool vec) {
+  constexpr int V = 16 / sizeof(T);
+  if (vec) {
+    const int nv = cols / V;
+    for (int e = threadIdx.x; e < rows * nv; e += blockDim.x) {
+      const int i = e / nv, j = (e - i * nv) * V;
+      T* d = dst + i * ldd + j;
+      if (i < rows_valid && j < cols_valid)
+        cp_async<16>(d, src + i * lds + j);
+      else
+        *reinterpret_cast<V16<T>*>(d) = V16<T>{};
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int i = e / cols, j = e - i * cols;
+      T* d = dst + i * ldd + j;
+      if (i < rows_valid && j < cols_valid)
+        cp_async<sizeof(T)>(d, src + i * lds + j);
+      else
+        *d = T(0);
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ V16<T> ld16(const T* p) {
+  return *reinterpret_cast<const V16<T>*>(p);
+}
+
+// ---------------------------------------------------------------------------
+// launch 1: per-track terms and gate
+// ---------------------------------------------------------------------------
+
+__host__ __device__ inline int n_panels(int D) { return (D + kCols - 1) / kCols; }
+
+// Row stride of H~ in shared memory: the panels' columns plus one 16-byte
+// word, an odd number of 16-byte words (n_panels * kCols is a multiple of
+// 32 elements in f32 and of 16 in f64)
+template <typename T>
+__host__ __device__ inline int h_stride(int D) {
+  return n_panels(D) * kCols + 16 / (int)sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ inline size_t track_smem_elems(int D) {
+  return (size_t)kRows * h_stride<T>(D)  // H, then H~ (rows past 2M zero)
+         + (size_t)kRows * kCols         // one panel of H~ P, then S
+         + 2 * kK * kCols                // two stages of P
+         + kRows * 3 + 2 * kRows         // Hf; r, then r~; the gate's copy of r~
+         + 3 * (size_t)D                 // C = W Hf^T H
+         + kGateNB * kGateMaxN + kGateMaxN  // the gate's panel and pivot row
+         + 16;                           // 9 sums, 6 entries of W
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 4 ? 2 : 1)
 update_track_kernel(const T* __restrict__ H, const T* __restrict__ Hf,
                     const T* __restrict__ r, const T* __restrict__ P,
                     const T* __restrict__ crit, const unsigned char* __restrict__ sel_ok,
                     T sigma2, T eps, T* __restrict__ Ht, T* __restrict__ rt,
                     unsigned char* __restrict__ passed, int U, int R2, int D) {
+  constexpr int V = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldh = h_stride<T>(D);
+  const int dp = n_panels(D) * kCols;
   T* Hs = reinterpret_cast<T*>(smem_raw);
-  const int ld = h_stride(D);
-  T* Hfs = Hs + (size_t)R2 * ld;
-  T* rs = Hfs + R2 * 3;
-  T* rr = rs + R2;
-  T* C = rr + kGateMaxN;
-  T* HP = C + 3 * (size_t)D;
-  T* S = HP + (size_t)kPanel * D;
-  T* panel = S + R2 * R2;
+  T* HP = Hs + (size_t)kRows * ldh;
+  T* S = HP;  // S takes the panel's place once the panels are done
+  T* Ps = HP + kRows * kCols;
+  T* Hfs = Ps + 2 * kK * kCols;
+  T* rs = Hfs + kRows * 3;
+  T* rr = rs + kRows;
+  T* C = rr + kRows;
+  T* panel = C + 3 * (size_t)D;
   T* rowj = panel + kGateNB * kGateMaxN;
   T* sums = rowj + kGateMaxN;
 
@@ -95,10 +202,25 @@ update_track_kernel(const T* __restrict__ H, const T* __restrict__ Hf,
   passed += sq * U;
   const int u = blockIdx.x;
   const int tid = threadIdx.x;
+  const bool vec = D % V == 0;
   const size_t hoff = (size_t)u * R2 * D;
-  for (int e = tid; e < R2 * D; e += blockDim.x) Hs[(e / D) * ld + e % D] = H[hoff + e];
+
+  // group 1: H (zero past 2M rows and D columns); group 2: the first stage
+  // of P, in flight through the projector
+  load_async(Hs, ldh, H + hoff, D, kRows, R2, dp, D, vec);
+  cp_async_commit();
+  const int nk = (D + kK - 1) / kK;
+  const int steps = n_panels(D) * nk;
+  auto load_p = [&](int s) {
+    const int p = s / nk, k0 = (s - p * nk) * kK;
+    load_async(Ps + (s & 1) * kK * kCols, kCols, P + (size_t)k0 * D + p * kCols, D, kK,
+               D - k0, kCols, D - p * kCols, vec);
+  };
+  load_p(0);
+  cp_async_commit();
   for (int e = tid; e < R2 * 3; e += blockDim.x) Hfs[e] = Hf[(size_t)u * R2 * 3 + e];
   for (int e = tid; e < R2; e += blockDim.x) rs[e] = r[(size_t)u * R2 + e];
+  cp_async_wait<1>();  // H has landed
   __syncthreads();
 
   // Hf^T Hf (6 entries) and Hf^T r (3), one thread each, rows in order
@@ -145,7 +267,7 @@ update_track_kernel(const T* __restrict__ H, const T* __restrict__ Hf,
   for (int d = tid; d < D; d += blockDim.x) {
     T B0 = T(0), B1 = T(0), B2 = T(0);
     for (int q = 0; q < R2; ++q) {
-      const T h = Hs[q * ld + d];
+      const T h = Hs[q * ldh + d];
       B0 = B0 + Hfs[q * 3] * h;
       B1 = B1 + Hfs[q * 3 + 1] * h;
       B2 = B2 + Hfs[q * 3 + 2] * h;
@@ -166,167 +288,369 @@ update_track_kernel(const T* __restrict__ H, const T* __restrict__ Hf,
     rt[(size_t)u * R2 + tid] = v;
   }
   __syncthreads();
-  // H~ = H - Hf C, in place, and out to the scratch
-  for (int e = tid; e < R2 * D; e += blockDim.x) {
-    const int q = e / D, d = e - q * D;
-    const T v = Hs[q * ld + d] - (Hfs[q * 3] * C[d] + Hfs[q * 3 + 1] * C[D + d] +
-                                  Hfs[q * 3 + 2] * C[2 * D + d]);
-    Hs[q * ld + d] = v;
-    Ht[hoff + e] = v;
+  // H~ = H - Hf C, in place, and out to the scratch: V columns per step
+  // (16-byte loads and stores) when D allows, else one
+  auto project = [&](int q, int d) {
+    return Hs[q * ldh + d] - (Hfs[q * 3] * C[d] + Hfs[q * 3 + 1] * C[D + d] +
+                              Hfs[q * 3 + 2] * C[2 * D + d]);
+  };
+  if (vec) {
+    const int nv = D / V;
+    for (int e = tid; e < R2 * nv; e += blockDim.x) {
+      const int q = e / nv, d = (e - q * nv) * V;
+      V16<T> h;
+#pragma unroll
+      for (int t = 0; t < V; ++t) h.v[t] = project(q, d + t);
+      *reinterpret_cast<V16<T>*>(Hs + q * ldh + d) = h;
+      *reinterpret_cast<V16<T>*>(Ht + hoff + (size_t)q * D + d) = h;
+    }
+  } else {
+    for (int e = tid; e < R2 * D; e += blockDim.x) {
+      const int q = e / D, d = e - q * D;
+      const T v = project(q, d);
+      Hs[q * ldh + d] = v;
+      Ht[hoff + e] = v;
+    }
   }
-  __syncthreads();
 
-  // S = H~ P H~^T + sigma^2 I, kPanel rows at a time
-  for (int p0 = 0; p0 < R2; p0 += kPanel) {
-    const int np = min(kPanel, R2 - p0);
-    // HP = H~[p0 : p0 + np] P: one column per thread, the rows in registers
-    for (int d = tid; d < D; d += blockDim.x) {
-      T acc[kPanel];
+  // H~P panel by panel, P streamed through two stages; S accumulated after
+  // each panel. Thread (rg, cg): H~P rows rg + 16i, columns 2cg + 32j +
+  // {0, 1} of the panel; S rows rg + 16i, columns cg + 16j.
+  const int rg = tid >> 4, cg = tid & 15;
+  T s[4][4];
+  T acc[4][6];
 #pragma unroll
-      for (int i = 0; i < kPanel; ++i) acc[i] = T(0);
-      for (int e = 0; e < D; ++e) {
-        const T pe = P[(size_t)e * D + d];
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int i = 0; i < kPanel; ++i)
-          if (i < np) acc[i] = acc[i] + Hs[(p0 + i) * ld + e] * pe;
+    for (int j = 0; j < 4; ++j) s[i][j] = T(0);
+  for (int st = 0; st < steps; ++st) {
+    const int p = st / nk, kc = st - p * nk;
+    if (st + 1 < steps) load_p(st + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's stage has landed
+    __syncthreads();     // (and, on the first step, H~ is complete)
+    if (kc == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 6; ++c) acc[i][c] = T(0);
+    }
+    const T* pst = Ps + (st & 1) * kK * kCols + 2 * cg;
+    const T* hrow = Hs + rg * ldh + kc * kK;
+#pragma unroll
+    for (int kk = 0; kk < kK; kk += V) {
+      V16<T> a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = ld16(hrow + 16 * i * ldh + kk);
+#pragma unroll
+      for (int t = 0; t < V; ++t) {
+        T b[6];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          const V2<T> pb = *reinterpret_cast<const V2<T>*>(pst + (kk + t) * kCols + 32 * j);
+          b[2 * j] = pb.v[0];
+          b[2 * j + 1] = pb.v[1];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 6; ++c) acc[i][c] = acc[i][c] + a[i].v[t] * b[c];
       }
+    }
+    __syncthreads();  // the next step's copy reuses this stage
+    if (kc == nk - 1) {
+      // the panel to shared memory, then S += panel H~[:, panel]^T
 #pragma unroll
-      for (int i = 0; i < kPanel; ++i)
-        if (i < np) HP[i * D + d] = acc[i];
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          V2<T> v;
+          v.v[0] = acc[i][2 * j];
+          v.v[1] = acc[i][2 * j + 1];
+          *reinterpret_cast<V2<T>*>(HP + (rg + 16 * i) * kCols + 2 * cg + 32 * j) = v;
+        }
+      __syncthreads();
+      const T* xrow = HP + rg * kCols;
+      const T* yrow = Hs + cg * ldh + p * kCols;
+#pragma unroll 2
+      for (int dd = 0; dd < kCols; dd += V) {
+        V16<T> x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i] = ld16(xrow + 16 * i * kCols + dd);
+          y[i] = ld16(yrow + 16 * i * ldh + dd);
+        }
+#pragma unroll
+        for (int t = 0; t < V; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) s[i][j] = s[i][j] + x[i].v[t] * y[j].v[t];
+      }
+      __syncthreads();  // the next panel (or S) overwrites HP
     }
-    __syncthreads();
-    for (int e = tid; e < np * R2; e += blockDim.x) {
-      const int i = e / R2, j = e - i * R2;
-      T acc = T(0);
-      for (int d = 0; d < D; ++d) acc = acc + HP[i * D + d] * Hs[j * ld + d];
-      if (p0 + i == j) acc = acc + sigma2;
-      S[(p0 + i) * R2 + j] = acc;
-    }
-    __syncthreads();
   }
+
+  // S + sigma^2 I to shared memory, row stride 2M, for the gate
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int row = rg + 16 * i, col = cg + 16 * j;
+      if (row < R2 && col < R2) S[row * R2 + col] = (row == col) ? s[i][j] + sigma2 : s[i][j];
+    }
+  __syncthreads();
 
   const T gamma = block_gating_gamma(S, rr, panel, rowj, R2);
   if (tid == 0) passed[u] = (sel_ok[u] && gamma <= crit[u]) ? 1 : 0;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-update_accumulate_kernel(const T* __restrict__ Ht, const T* __restrict__ rt,
-                         const unsigned char* __restrict__ passed, T* __restrict__ A,
-                         T* __restrict__ c, int U, int R2, int D) {
-  __shared__ T sa[kTile][kTile + 1];
-  __shared__ T sb[kTile][kTile + 1];
-  constexpr int kRows = kThreads / kTile;  // 8 thread rows of 32
-  const int nt = (D + kTile - 1) / kTile;
-  const int tx = threadIdx.x % kTile, ty = threadIdx.x / kTile;
-  const int rows = U * R2;
-  const size_t sq = blockIdx.y;  // the sequence of a batched launch
-  Ht += sq * rows * D;
-  rt += sq * rows;
-  passed += sq * U;
-  A += sq * D * D;
-  c += sq * D;
+// ---------------------------------------------------------------------------
+// launch 2: partial sums of A's lower triangle and of c, one chunk each
+// ---------------------------------------------------------------------------
 
-  if (blockIdx.x < nt * nt) {
-    // A[a0 : a0 + 32, b0 : b0 + 32]; thread (tx, ty) holds rows ty + 8k
-    const int a0 = (blockIdx.x / nt) * kTile, b0 = (blockIdx.x % nt) * kTile;
-    T acc[kTile / kRows];
-#pragma unroll
-    for (int k = 0; k < kTile / kRows; ++k) acc[k] = T(0);
-    for (int q0 = 0; q0 < rows; q0 += kTile) {
-      for (int e = threadIdx.x; e < kTile * kTile; e += blockDim.x) {
-        const int i = e / kTile, j = e - i * kTile, q = q0 + i;
-        const bool live = q < rows && passed[q / R2];
-        sa[i][j] = (live && a0 + j < D) ? Ht[(size_t)q * D + a0 + j] : T(0);
-        sb[i][j] = (live && b0 + j < D) ? Ht[(size_t)q * D + b0 + j] : T(0);
-      }
-      __syncthreads();
-      for (int i = 0; i < kTile; ++i) {
-        const T bv = sb[i][tx];
-#pragma unroll
-        for (int k = 0; k < kTile / kRows; ++k) acc[k] = acc[k] + sa[i][ty + kRows * k] * bv;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int k = 0; k < kTile / kRows; ++k) {
-      const int a = a0 + ty + kRows * k, b = b0 + tx;
-      if (a < D && b < D) A[(size_t)a * D + b] = acc[k];
-    }
-  } else {
-    // c[c0 : c0 + 32]: each thread row sums every 8th row, then the 8
-    // partial sums are added in a fixed order
-    const int col = (blockIdx.x - nt * nt) * kTile + tx;
-    T acc = T(0);
-    if (col < D) {
-      for (int q = ty; q < rows; q += kRows) {
-        const T v = Ht[(size_t)q * D + col] * rt[q];
-        acc = acc + (passed[q / R2] ? v : T(0));
-      }
-    }
-    sa[ty][tx] = acc;
-    __syncthreads();
-    if (ty == 0 && col < D) {
-      T s = sa[0][tx];
-      for (int k = 1; k < kRows; ++k) s = s + sa[k][tx];
-      c[col] = s;
-    }
-  }
+constexpr size_t partial_smem_elems() {
+  return 2 * 2 * (size_t)kUnit * kTile  // two stages of the a and b columns
+         + 2 * kUnit                    // two stages of r~
+         + 4 * kTile;                   // c's four row-lane sums
+}
+
+// the index of the n-th set bit of m (n < popc(m))
+__device__ __forceinline__ int nth_bit(unsigned m, int n) {
+  for (int i = 0; i < n; ++i) m &= m - 1;
+  return __ffs(m) - 1;
 }
 
 template <typename T>
-int launch(const void* H, const void* Hf, const void* r, const void* P, const void* crit,
-           const void* sel_ok, void* Ht, void* rt, void* A, void* c, void* passed,
-           int U, int R2, int D, int B, double sigma2, double eps, cudaStream_t stream) {
-  if (U < 1 || R2 < 1 || R2 > kGateMaxN || D < 1 || B < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = track_smem_elems(R2, D) * sizeof(T);
-  // the shared-memory opt-in, made once per device and raised only when a
-  // call needs more than the last one set
-  constexpr int kMaxDevices = 64;
-  static size_t smem_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices || smem > smem_set[dev]) {
-    err = cudaFuncSetAttribute((const void*)update_track_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < kMaxDevices) smem_set[dev] = smem;
+__global__ void __launch_bounds__(kThreads)
+update_partial_kernel(const T* __restrict__ Ht, const T* __restrict__ rt,
+                      const unsigned char* __restrict__ passed, T* __restrict__ Apart,
+                      T* __restrict__ cpart, int U, int R2, int D, int tpc) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kF = 4 / V;  // 16-byte words in a thread's 4 rows (or columns)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* As = reinterpret_cast<T*>(smem_raw);
+  T* Bs = As + 2 * kUnit * kTile;
+  T* rs = Bs + 2 * kUnit * kTile;
+  T* red = rs + 2 * kUnit;
+
+  // the block's tile (ta, tb), tb <= ta, and chunk
+  const int nt = (D + kTile - 1) / kTile;
+  const int ntri = nt * (nt + 1) / 2;
+  const int chunk = blockIdx.x / ntri;
+  int tb = blockIdx.x - chunk * ntri, ta = 0;
+  while (tb > ta) {
+    tb -= ta + 1;
+    ++ta;
   }
-  update_track_kernel<T><<<dim3(U, B), kThreads, smem, stream>>>(
+  const int a0 = ta * kTile, b0 = tb * kTile;
+  const bool diag = ta == tb;
+
+  const size_t sq = blockIdx.y;  // the sequence of a batched launch
+  const int nch = (U + tpc - 1) / tpc;
+  Ht += sq * U * R2 * D;
+  rt += sq * U * R2;
+  passed += sq * U;
+  Apart += (sq * nch + chunk) * D * D;
+  cpart += (sq * nch + chunk) * D;
+  const int tid = threadIdx.x;
+  const int u0 = chunk * tpc, ntr = min(tpc, U - u0);
+  const int lane = tid & 31;
+  const unsigned live = __ballot_sync(0xffffffffu, lane < ntr && passed[u0 + lane]);
+  const int upt = (R2 + kUnit - 1) / kUnit;  // units of kUnit rows per track
+  const int nunits = __popc(live) * upt;
+  const bool vec = D % V == 0;
+
+  // unit n: rows [q0, q0 + nr) of the n / upt-th passed track of the chunk
+  auto unit_rows = [&](int n) { return min(kUnit, R2 - (n % upt) * kUnit); };
+  auto load_unit = [&](int n) {
+    const int t = nth_bit(live, n / upt), q0 = (n % upt) * kUnit, nr = unit_rows(n);
+    const size_t row = (size_t)(u0 + t) * R2 + q0;
+    const int stage = (n & 1) * kUnit;
+    load_async(As + stage * kTile, kTile, Ht + row * D + a0, D, nr, nr, kTile, D - a0, vec);
+    if (diag) {
+      if (tid < nr) cp_async<sizeof(T)>(rs + stage + tid, rt + row + tid);
+    } else {
+      load_async(Bs + stage * kTile, kTile, Ht + row * D + b0, D, nr, nr, kTile, D - b0, vec);
+    }
+  };
+
+  // thread (tx, ty): rows a0 + V ty + 16 V m + t, columns b0 + V tx + 16 V m + t
+  const int tx = tid & 15, ty = tid >> 4;
+  T acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+  T cacc = T(0);
+  if (nunits > 0) load_unit(0);
+  cp_async_commit();
+  for (int n = 0; n < nunits; ++n) {
+    if (n + 1 < nunits) load_unit(n + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int nr = unit_rows(n);
+    const T* as = As + (n & 1) * kUnit * kTile;
+    const T* bs = diag ? as : Bs + (n & 1) * kUnit * kTile;
+    for (int q = 0; q < nr; ++q) {
+      T x[4], y[4];
+#pragma unroll
+      for (int m = 0; m < kF; ++m) {
+        const V16<T> xv = ld16(as + q * kTile + V * ty + 16 * V * m);
+        const V16<T> yv = ld16(bs + q * kTile + V * tx + 16 * V * m);
+#pragma unroll
+        for (int t = 0; t < V; ++t) {
+          x[m * V + t] = xv.v[t];
+          y[m * V + t] = yv.v[t];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = acc[i][j] + x[i] * y[j];
+    }
+    if (diag) {  // c: column tid % 64, every 4th row from tid / 64
+      const T* rst = rs + (n & 1) * kUnit;
+      for (int q = tid >> 6; q < nr; q += 4) cacc = cacc + as[q * kTile + (tid & 63)] * rst[q];
+    }
+    __syncthreads();  // the next copy reuses this stage
+  }
+
+#pragma unroll
+  for (int mi = 0; mi < kF; ++mi)
+#pragma unroll
+    for (int ti = 0; ti < V; ++ti) {
+      const int i = mi * V + ti, a = a0 + V * ty + 16 * V * mi + ti;
+      if (a >= D) continue;
+#pragma unroll
+      for (int mj = 0; mj < kF; ++mj) {
+        const int b = b0 + V * tx + 16 * V * mj;
+        if (vec) {
+          if (b < D) {
+            V16<T> v;
+#pragma unroll
+            for (int tj = 0; tj < V; ++tj) v.v[tj] = acc[i][mj * V + tj];
+            *reinterpret_cast<V16<T>*>(Apart + (size_t)a * D + b) = v;
+          }
+        } else {
+#pragma unroll
+          for (int tj = 0; tj < V; ++tj)
+            if (b + tj < D) Apart[(size_t)a * D + b + tj] = acc[i][mj * V + tj];
+        }
+      }
+    }
+  if (diag) {
+    red[tid] = cacc;  // red[lane * 64 + column]
+    __syncthreads();
+    if (tid < kTile && a0 + tid < D)
+      cpart[a0 + tid] = ((red[tid] + red[kTile + tid]) + red[2 * kTile + tid]) + red[3 * kTile + tid];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch 3: the partials summed in chunk order
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+update_reduce_kernel(const T* __restrict__ Apart, const T* __restrict__ cpart,
+                     T* __restrict__ A, T* __restrict__ c, int D, int nch) {
+  const size_t sq = blockIdx.y;  // the sequence of a batched launch
+  const size_t dd = (size_t)D * D;
+  Apart += sq * nch * dd;
+  cpart += sq * nch * D;
+  A += sq * dd;
+  c += sq * D;
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < D * D) {
+    const int a = e / D, b = e - a * D;
+    const size_t at = a >= b ? (size_t)a * D + b : (size_t)b * D + a;
+    T s = Apart[at];
+#pragma unroll 4
+    for (int k = 1; k < nch; ++k) s = s + Apart[k * dd + at];
+    A[e] = s;
+  } else if (e < D * D + D) {
+    const int a = e - D * D;
+    T s = cpart[a];
+#pragma unroll 4
+    for (int k = 1; k < nch; ++k) s = s + cpart[(size_t)k * D + a];
+    c[a] = s;
+  }
+}
+
+// The dynamic-shared-memory opt-in of one kernel, made once per device and
+// raised only when a call needs more than the last one set
+struct OptIn {
+  static constexpr int kMaxDevices = 64;
+  size_t bytes[kMaxDevices] = {};
+  cudaError_t ensure(const void* fn, size_t need) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kMaxDevices && need <= bytes[dev]) return cudaSuccess;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)need);
+    if (err == cudaSuccess && dev < kMaxDevices) bytes[dev] = need;
+    return err;
+  }
+};
+
+template <typename T>
+int launch(const void* H, const void* Hf, const void* r, const void* P, const void* crit,
+           const void* sel_ok, void* Ht, void* rt, void* Apart, void* cpart, void* A, void* c,
+           void* passed, int U, int R2, int D, int B, int tpc, double sigma2, double eps,
+           cudaStream_t stream) {
+  if (U < 1 || R2 < 1 || R2 > kGateMaxN || D < 1 || B < 1 || B > 65535 || tpc < 1 ||
+      tpc > kMaxChunkTracks)
+    return (int)cudaErrorInvalidValue;
+  static OptIn track_opt, partial_opt;
+  const size_t smem1 = track_smem_elems<T>(D) * sizeof(T);
+  const size_t smem2 = partial_smem_elems() * sizeof(T);
+  cudaError_t err = track_opt.ensure((const void*)update_track_kernel<T>, smem1);
+  if (err != cudaSuccess) return (int)err;
+  err = partial_opt.ensure((const void*)update_partial_kernel<T>, smem2);
+  if (err != cudaSuccess) return (int)err;
+
+  update_track_kernel<T><<<dim3(U, B), kThreads, smem1, stream>>>(
       static_cast<const T*>(H), static_cast<const T*>(Hf), static_cast<const T*>(r),
       static_cast<const T*>(P), static_cast<const T*>(crit),
       static_cast<const unsigned char*>(sel_ok), T(sigma2), T(eps), static_cast<T*>(Ht),
       static_cast<T*>(rt), static_cast<unsigned char*>(passed), U, R2, D);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  const int nch = (U + tpc - 1) / tpc;
   const int nt = (D + kTile - 1) / kTile;
-  update_accumulate_kernel<T><<<dim3(nt * nt + nt, B), kThreads, 0, stream>>>(
+  update_partial_kernel<T><<<dim3(nch * (nt * (nt + 1) / 2), B), kThreads, smem2, stream>>>(
       static_cast<const T*>(Ht), static_cast<const T*>(rt),
-      static_cast<const unsigned char*>(passed), static_cast<T*>(A), static_cast<T*>(c),
-      U, R2, D);
+      static_cast<const unsigned char*>(passed), static_cast<T*>(Apart), static_cast<T*>(cpart),
+      U, R2, D, tpc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  update_reduce_kernel<T><<<dim3((D * D + D + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
+      static_cast<const T*>(Apart), static_cast<const T*>(cpart), static_cast<T*>(A),
+      static_cast<T*>(c), D, nch);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// every array carries a leading axis of B sequences (Ht and rt, the
-// per-track scratch, too)
+// every array carries a leading axis of B sequences (the per-track scratch
+// Ht, rt and the partials Apart (B, chunks, D, D), cpart (B, chunks, D)
+// too); tpc is the chunk plan's tracks per chunk
 MSCKF_EXPORT int msckf_update_terms_f32(const void* H, const void* Hf, const void* r,
                                         const void* P, const void* crit, const void* sel_ok,
-                                        void* Ht, void* rt, void* A, void* c, void* passed,
-                                        int U, int R2, int D, int B, double sigma2,
-                                        double eps, void* stream) {
-  return launch<float>(H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed, U, R2, D, B, sigma2,
-                       eps, static_cast<cudaStream_t>(stream));
+                                        void* Ht, void* rt, void* Apart, void* cpart, void* A,
+                                        void* c, void* passed, int U, int R2, int D, int B,
+                                        int tpc, double sigma2, double eps, void* stream) {
+  return launch<float>(H, Hf, r, P, crit, sel_ok, Ht, rt, Apart, cpart, A, c, passed, U, R2, D,
+                       B, tpc, sigma2, eps, static_cast<cudaStream_t>(stream));
 }
 
 MSCKF_EXPORT int msckf_update_terms_f64(const void* H, const void* Hf, const void* r,
                                         const void* P, const void* crit, const void* sel_ok,
-                                        void* Ht, void* rt, void* A, void* c, void* passed,
-                                        int U, int R2, int D, int B, double sigma2,
-                                        double eps, void* stream) {
-  return launch<double>(H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed, U, R2, D, B, sigma2,
-                        eps, static_cast<cudaStream_t>(stream));
+                                        void* Ht, void* rt, void* Apart, void* cpart, void* A,
+                                        void* c, void* passed, int U, int R2, int D, int B,
+                                        int tpc, double sigma2, double eps, void* stream) {
+  return launch<double>(H, Hf, r, P, crit, sel_ok, Ht, rt, Apart, cpart, A, c, passed, U, R2,
+                        D, B, tpc, sigma2, eps, static_cast<cudaStream_t>(stream));
 }

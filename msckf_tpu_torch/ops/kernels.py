@@ -150,9 +150,9 @@ _SIGNATURES = {
     "msckf_propagate_block": (_P,) * 25 + (_I, _I, _P),
     # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, B, stream
     "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I, _I, _I, _P),
-    # H, Hf, r, P, crit, sel_ok, | Ht, rt (scratch), A, c, passed, U, 2M, D, B,
-    # sigma2, eps, stream
-    "msckf_update_terms": (_P,) * 11 + (_I, _I, _I, _I, _D, _D, _P),
+    # H, Hf, r, P, crit, sel_ok, | Ht, rt, Apart, cpart (scratch), A, c, passed,
+    # U, 2M, D, B, tracks per chunk, sigma2, eps, stream
+    "msckf_update_terms": (_P,) * 13 + (_I,) * 5 + (_D, _D, _P),
 }
 
 
@@ -910,23 +910,47 @@ def _update_terms_check(H, Hf, r, P, crit, sel_ok):
     return dt, B, U, R2, D
 
 
+# The accumulation's split over rows (launch 2 of update_terms.cu): chunks of
+# whole tracks of about 512 rows, the TPU kernel's tile of 8 tracks of 64 rows
+# (_UPDATE_TILE_U, pallas_kernels.py:461), at most 32 tracks (the kernel reads
+# a chunk's gate decisions as one warp ballot).
+UPDATE_CHUNK_ROWS = 512
+UPDATE_CHUNK_MAX_TRACKS = 32
+
+
+def update_chunk_plan(U: int, R2: int) -> tuple[int, int]:
+    """(tracks per chunk, chunks) of the update-terms accumulation for U
+    tracks of 2M = R2 rows: chunk k holds tracks [k t, min((k + 1) t, U)).
+    The plan fixes the kernel's order of summation, so it depends on U and
+    2M only, never on the batch. Raises ValueError for 2M outside
+    [1, 64], which the kernel's in-block gate cannot take."""
+    if not 1 <= R2 <= GATING_MAX_N:
+        raise ValueError(f"update-terms kernel takes 1 <= 2M <= {GATING_MAX_N}, got {R2}")
+    if U < 0:
+        raise ValueError(f"update-terms kernel takes U >= 0, got {U}")
+    tpc = min(UPDATE_CHUNK_MAX_TRACKS, max(1, UPDATE_CHUNK_ROWS // R2))
+    return tpc, -(-U // tpc)
+
+
 def _update_terms_launch(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
     dt, B, U, R2, D = _update_terms_check(H, Hf, r, P, crit, sel_ok)
     dev = H.device
-    if R2 > GATING_MAX_N:
-        raise ValueError(f"update-terms kernel takes 2M <= {GATING_MAX_N}, got {R2}")
-    if B * U * R2 == 0:
+    if B * U * R2 == 0 and R2 <= GATING_MAX_N:
         return (torch.zeros((B, D, D), dtype=dt, device=dev),
                 torch.zeros((B, D), dtype=dt, device=dev),
                 torch.zeros((B, U), dtype=torch.bool, device=dev))
+    tpc, n_chunks = update_chunk_plan(U, R2)
     Ht = torch.empty((B, U, R2, D), dtype=dt, device=dev)
     rt = torch.empty((B, U, R2), dtype=dt, device=dev)
+    Apart = torch.empty((B, n_chunks, D, D), dtype=dt, device=dev)
+    cpart = torch.empty((B, n_chunks, D), dtype=dt, device=dev)
     A = torch.empty((B, D, D), dtype=dt, device=dev)
     c = torch.empty((B, D), dtype=dt, device=dev)
     passed = torch.empty((B, U), dtype=torch.bool, device=dev)
     _launch("msckf_update_terms", dt,
-            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok, Ht, rt, A, c, passed)),
-            U, R2, D, B, float(sigma2), 3.0 * float(rcond))
+            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok, Ht, rt, Apart, cpart, A, c,
+                                     passed)),
+            U, R2, D, B, tpc, float(sigma2), 3.0 * float(rcond))
     LAUNCHES["update_terms_fused"] += 1
     return A, c, passed
 
@@ -937,8 +961,9 @@ def update_terms_fused(H: torch.Tensor, Hf: torch.Tensor, r: torch.Tensor, P: to
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """H (U, 2M, D), Hf (U, 2M, 3), r (U, 2M), P (D, D), crit (U,) with NaN
     for a track that must fail, sel_ok (U,) bool -> A (D, D), c (D,),
-    passed (U,) bool. One call is two launches (per-track terms and gate,
-    then the masked accumulation), counted as one."""
+    passed (U,) bool. One call is three launches (per-track terms and gate,
+    the masked accumulation's partial sums by chunk of tracks, their sum),
+    counted as one."""
     return _single_call(_update_terms_launch, _update_terms_check, update_terms_fused_plain,
                         (H, Hf, r, P, crit, sel_ok), (sigma2, rcond))
 

@@ -252,3 +252,49 @@ def test_update_terms_plain_matches_pallas(U):
     assert np.isfinite(A.numpy()).all() and np.isfinite(c.numpy()).all()
     _close(A.numpy(), np.asarray(A_w))
     _close(c.numpy(), np.asarray(c_w))
+
+
+@pytest.mark.parametrize("U,R2", [(128, 64), (13, 12), (12, 16), (37, 40), (1, 1), (5, 64), (0, 8)])
+def test_update_chunk_plan_covers_every_row_once(U, R2):
+    """The accumulation's chunks hold whole tracks, every track (so every
+    row) in exactly one chunk, in order, and about 512 rows each."""
+    tpc, n = K.update_chunk_plan(U, R2)
+    assert 1 <= tpc <= K.UPDATE_CHUNK_MAX_TRACKS
+    tracks = [list(range(k * tpc, min((k + 1) * tpc, U))) for k in range(n)]
+    assert all(tracks) and sum(tracks, []) == list(range(U))
+    rows = [[u * R2 + q for u in t for q in range(R2)] for t in tracks]
+    assert sum(rows, []) == list(range(U * R2))
+    assert tpc * R2 <= max(K.UPDATE_CHUNK_ROWS, R2)
+    if (U, R2) == (128, 64):
+        assert (tpc, n) == (8, 16)  # the TPU kernel's tile of 8 tracks
+
+
+@pytest.mark.parametrize("R2", [0, 65, 128])
+def test_update_chunk_plan_rejects_2m_outside_the_gate(R2):
+    with pytest.raises(ValueError, match="2M"):
+        K.update_chunk_plan(8, R2)
+
+
+def test_update_terms_scratch_follows_the_plan_not_the_batch(monkeypatch):
+    """The wrapper's launcher sizes the partials scratch (B, chunks, D, D)
+    and (B, chunks, D) from the plan and passes the same tracks per chunk
+    whatever the batch, so a batched call sums in a single call's order;
+    2M > 64 raises before any launch. The launch itself is recorded, not
+    made: the tests run on the CPU."""
+    calls = []
+    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append(args))
+    rng = np.random.default_rng(3)
+    U, R2, D = 37, 40, 20
+    tpc, n = K.update_chunk_plan(U, R2)
+    for B in (1, 3):
+        H, Hf, r, P, crit, sel = (_t(np.stack([a] * B)) for a in _update_terms_inputs(rng, U, R2, D))
+        ptr = {t.data_ptr(): t for t in (H, Hf, r, P, crit, sel)}
+        A, c, passed = K._update_terms_launch(H, Hf, r, P, crit, sel, 0.01, 1e-12)
+        assert A.shape == (B, D, D) and c.shape == (B, D) and passed.shape == (B, U)
+        args = calls[-1]
+        assert args[:6] == tuple(ptr)
+        assert args[13:18] == (U, R2, D, B, tpc)
+    with pytest.raises(ValueError, match="2M"):
+        K._update_terms_launch(*(_t(a[None]) for a in _update_terms_inputs(rng, 4, 65, D)),
+                               0.01, 1e-12)
+    assert len(calls) == 2
