@@ -13,10 +13,13 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               inputs: equal gate/verification/triage decisions, floats
               within the stated tolerances; CUDA-event times of kernel,
               plain version and (gating) a library yardstick; the bound for
-              each. The update terms also at three ragged shapes (single
-              and batched at B = 4, bitwise), with the device time of each
-              of their three launches and a yardstick: the same products
-              by torch.matmul. Then each kernel's batched form (its vmap
+              each. The gate also at n = 80 and 130 (and, in float64, 240,
+              whose working set lies in a global scratch). The update terms
+              also at six ragged shapes up to 2M = 80 and D = 294, on both
+              forms of their first launch (single and batched at B = 4,
+              bitwise), with the device time of each of their four launches
+              and a yardstick: the same products by torch.matmul. Then each
+              kernel's batched form (its vmap
               rule's one launch for B = 32 sequences; B = 4 for the update
               terms in float64): bitwise equal to B single launches, within
               the same tolerances of the plain version over the batch
@@ -24,9 +27,10 @@ Phases (each one raises, and the script exits non-zero, on any failure):
 3. parity   — the test capacities in float64, 600 ticks of the circle, on
               the card and on the CPU, in the default configuration, with
               update_kernel="fused" and with the plain triage
-              (use_pallas_triage=False): equal counters and per-tick counts,
-              matching trajectories; the same for batched_run_sequence over
-              two seeds (default dispatch).
+              (use_pallas_triage=False), then the default and the fused ones
+              with n_cam_slots=41, m_max=40 (2M = 80, D = 246): equal
+              counters and per-tick counts, matching trajectories; the same
+              for batched_run_sequence over two seeds (default dispatch).
 4. main     — the default configuration (float32 filter, float64
               correction island, triage kernel, hybrid update with the
               gating kernel) at the reference capacities over the whole
@@ -97,13 +101,27 @@ def update_terms_flops(U: int, R2: int, D: int) -> float:
 
 TOL = {"float32": 1e-4, "float64": 1e-10}
 
-# the three launches of one update_terms_fused call (update_terms.cu)
-UPDATE_LAUNCHES = ("update_track_kernel", "update_partial_kernel", "update_reduce_kernel")
+# the four launches of one update_terms_fused call (update_terms.cu), and
+# the two of the general form of its first launch (2M > 64, or a working set
+# over the shared-memory opt-in), which replace update_track_kernel
+UPDATE_LAUNCHES = ("update_track_kernel", "gate_kernel", "update_partial_kernel",
+                   "update_reduce_kernel")
+UPDATE_KERNELS = UPDATE_LAUNCHES + ("update_project_kernel", "update_s_kernel")
 # (U, 2M, D) of the ragged update-terms checks: the CPU tests' two shapes
-# (tests/test_torch_kernels.py, tests/test_torch_batched_kernels.py) and one
-# of several chunks with D a multiple of 16 bytes but not of the 64-column tile
-RAGGED_UPDATE_SHAPES = ((13, 12, 27), (12, 16, 63), (37, 40, 100))
+# (tests/test_torch_kernels.py, tests/test_torch_batched_kernels.py), one of
+# several chunks with D a multiple of 16 bytes but not of the 64-column
+# tile, 2M = 80 at D = 246 (n_cam_slots = 41, m_max = 40: the general launch
+# 1 in both types), and D = 198 and 294 at 2M = 64 (past the earlier
+# design's f64 limit of D = 192; 294 is past the fast form's f64 limit of 288)
+RAGGED_UPDATE_SHAPES = ((13, 12, 27), (12, 16, 63), (37, 40, 100), (9, 80, 246), (9, 64, 198),
+                        (9, 64, 294))
 RAGGED_BATCH = 4
+# n of the gate checks beyond the main path's 64 (U = GATE_U systems each);
+# in float64 also one whose working set leaves shared memory for the global
+# scratch (n >= 237 on the H100's opt-in)
+GATE_SHAPES = (80, 130)
+GATE_GLOBAL_N = 240
+GATE_U = 32
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
@@ -221,8 +239,11 @@ def kernel_bound(name: str, dims, dtype: str, B: int = 1):
     sz = 4 if dtype == "float32" else 8
     peaks = PEAK_FLOPS
     if name == "batched_gating_gamma":
+        # the recurrence reads S's upper triangle only (gate.cuh copies just
+        # that), so each system moves n (n + 1) / 2 + n elements in, 1 out
         U, n = dims
-        nbytes, flops = (U * n * n + U * n + U) * sz, U * (n**3 / 3 + n**2 + 2 * n)
+        nbytes = U * (n * (n + 1) // 2 + n + 1) * sz
+        flops = U * (n**3 / 3 + n**2 + 2 * n)
     elif name == "verification_scores":
         F, M = dims
         nbytes = (F * M * (9 + 3 + 2 + 3) + F * 2 + 30) * sz
@@ -257,21 +278,13 @@ def _rotations(rng, n, scale):
     return Rotation.from_rotvec(rng.normal(size=(n, 3)) * scale).as_matrix()
 
 
-def kernel_inputs(torch, dtype, rng, cfg):
-    """Seeded inputs at the main path's shapes (U = u_max systems of
-    n = 2 m_max rows; F x M = f_max x m_max verification pairs; a 9-tick P15
-    block; a 1-tick propagation block)."""
-    dev = torch.device(DEVICE)
-    U, n, F, M = cfg.u_max, 2 * cfg.m_max, cfg.f_max, cfg.m_max
-
-    def t(a, dt=dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
-
-    # gating: S = A A^T + sigma^2 I over k_u live rows (k_u = 2 n_obs),
-    # sigma^2 I padding rows with zero residual, as the update builds them;
-    # A A^T is a well-conditioned Wishart draw (condition number < 10), so
-    # float32 round-off stays far inside the tolerance. System 3 gets a
-    # negative pivot, which must fail the gate.
+def gate_inputs(rng, U, n):
+    """S = A A^T + sigma^2 I over k_u live rows (k_u = 2 n_obs), sigma^2 I
+    padding rows with zero residual, as the update builds them; A A^T is a
+    well-conditioned Wishart draw (condition number < 10), so float32
+    round-off stays far inside the tolerance. System 3 gets a negative
+    pivot, which must fail the gate. Returns numpy S, r and the chi-square
+    thresholds."""
     from scipy.stats import chi2
 
     S = np.zeros((U, n, n))
@@ -285,8 +298,20 @@ def kernel_inputs(torch, dtype, rng, cfg):
         dof[u] = k - 3
     S += 0.01 * np.eye(n)
     S[3, 10, 10] = -1.0
-    crit = chi2.ppf(0.95, dof)
-    gating = (t(S), t(r), t(crit))
+    return S, r, chi2.ppf(0.95, dof)
+
+
+def kernel_inputs(torch, dtype, rng, cfg):
+    """Seeded inputs at the main path's shapes (U = u_max systems of
+    n = 2 m_max rows; F x M = f_max x m_max verification pairs; a 9-tick P15
+    block; a 1-tick propagation block)."""
+    dev = torch.device(DEVICE)
+    U, n, F, M = cfg.u_max, 2 * cfg.m_max, cfg.f_max, cfg.m_max
+
+    def t(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=dev)
+
+    gating = tuple(map(t, gate_inputs(rng, U, n)))
 
     # verification: observation poses near the current camera, keypoints
     # in the image, a share of short baselines
@@ -376,6 +401,8 @@ def kernel_inputs(torch, dtype, rng, cfg):
     P[last, :] = 0.0
     P[:, last] = 0.0
     P[last, last] = -np.eye(6)
+    from scipy.stats import chi2
+
     dof_u = np.clip(2 * n_obs - 3, 0, n)
     crit_u = np.where(dof_u > 0, chi2.ppf(0.95, np.maximum(dof_u, 1)), np.nan)
     crit_u[2] = np.nan
@@ -408,7 +435,7 @@ def phase_kernels(torch, K, cfg, rng):
         ea, er = assert_close("gating gamma", g_k, g_p, tol)
         n_pass = int((g_k <= crit).sum())
         ms = time_ms(torch, lambda: K.batched_gating_gamma(S, r))
-        dev_ms = kernel_only_ms(torch, lambda: K.batched_gating_gamma(S, r), "gating_kernel")
+        dev_ms = kernel_only_ms(torch, lambda: K.batched_gating_gamma(S, r), "gate_kernel")
         plain = time_ms(torch, lambda: K.batched_gating_gamma_plain(S, r))
 
         def library():
@@ -423,6 +450,7 @@ def phase_kernels(torch, K, cfg, rng):
             f"plain {plain:.4f} ms, cholesky_ex+cholesky_solve {lib:.4f} ms, bound {bms:.6f} ms ({bby})")
         rows["batched_gating_gamma"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
                                             by=bby, lib=lib)
+        check_gate_shapes(torch, K, dtype_name, rng)
 
         # 2. verification
         F, M = verification[1].shape[:2]
@@ -546,7 +574,7 @@ def phase_kernels(torch, K, cfg, rng):
         errs, near = check_update_terms(torch, K, "update terms", out, update, sigma2, rcond, tol)
         ea, er = _worst(errs)
         ms = time_ms(torch, lambda: K.update_terms_fused(*uargs))
-        dev_ms = kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), UPDATE_LAUNCHES)
+        dev_ms = kernel_only_ms(torch, lambda: K.update_terms_fused(*uargs), UPDATE_KERNELS)
         split = launch_split(torch, lambda: K.update_terms_fused(*uargs))
         plain = time_ms(torch, lambda: K.update_terms_fused_plain(*uargs))
         mm = update_matmul_ms(torch, H_t, P)
@@ -569,6 +597,40 @@ def phase_kernels(torch, K, cfg, rng):
 def launch_split(torch, fn) -> str:
     """Device time per call of each of update_terms_fused's launches."""
     return ", ".join(f"{m} {_fmt_ms(kernel_only_ms(torch, fn, m))}" for m in UPDATE_LAUNCHES)
+
+
+def check_gate_shapes(torch, K, dtype_name, rng):
+    """The gate kernel at n beyond the main path's 64 (GATE_SHAPES and, in
+    float64, GATE_GLOBAL_N, whose working set lies in the global scratch):
+    the negative pivot fails, decisions equal to the plain version's, gamma
+    within the tolerance; a batched launch of two sequences bitwise equal
+    to its single launches."""
+    dtype = getattr(torch, dtype_name)
+    tol = TOL[dtype_name]
+    shapes = GATE_SHAPES + ((GATE_GLOBAL_N,) if dtype_name == "float64" else ())
+    for n in shapes:
+        S, r, crit = (torch.as_tensor(a, dtype=dtype, device=DEVICE)
+                      for a in gate_inputs(rng, GATE_U, n))
+        g_k = K.batched_gating_gamma(S, r)
+        g_p = K.batched_gating_gamma_plain(S, r)
+        torch.cuda.synchronize()
+        check(not torch.isfinite(g_k[3]), f"gating n={n}: negative pivot gave a finite gamma")
+        check(torch.equal(g_k <= crit, g_p <= crit), f"gating n={n}: gate decisions differ")
+        ea, er = assert_close(f"gating n={n} gamma", g_k, g_p, tol)
+        half = GATE_U // 2
+        g_b = torch.func.vmap(K.batched_gating_gamma)(S.view(2, half, n, n), r.view(2, half, n))
+        g_1 = K.batched_gating_gamma(S[half:].contiguous(), r[half:].contiguous())
+        torch.cuda.synchronize()
+        check(same_bits(torch, g_b.reshape(-1), g_k) and same_bits(torch, g_b[1], g_1),
+              f"gating n={n}: batched launch differs from single launches")
+        scratch = K.gate_scratch_elems(dtype, n, S.device)
+        dev_ms = kernel_only_ms(torch, lambda: K.batched_gating_gamma(S, r), "gate_kernel")
+        log(f"gating        U={GATE_U} n={n}: max abs {ea:.3e} rel {er:.3e}; "
+            f"{int((g_k <= crit).sum())}/{GATE_U} pass (decisions equal), negative pivot "
+            f"fails, batched (B=2) bitwise equal to single; working set in "
+            + (f"the global scratch ({scratch} elements per system)" if scratch
+               else "shared memory")
+            + f"; kernel only {_fmt_ms(dev_ms)}")
 
 
 def update_matmul_ms(torch, H_t, P) -> float:
@@ -632,6 +694,23 @@ def check_update_terms(torch, K, name, out, args, sigma2, rcond, tol):
             "c": assert_close(f"{name} c", c_k, c_p, tol, floor=True)}, near
 
 
+def launch1_form(torch, fn) -> str:
+    """Which form of its first launch one update_terms_fused call took, by
+    the kernels the profiler saw it launch: "fast" (update_track_kernel) or
+    "general" (update_project_kernel, update_s_kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    keys = [e.key for e in prof.key_averages()]
+    fast = any("update_track_kernel" in k for k in keys)
+    general = any("update_s_kernel" in k for k in keys)
+    check(fast != general, f"update terms: launch 1's form not told by the profile ({keys})")
+    return "fast" if fast else "general"
+
+
 def check_update_ragged(torch, K, dtype_name, rng):
     """update_terms_fused at shapes that are not multiples of its tiles
     (ragged columns, rows, panels and chunks), single and batched: against
@@ -643,6 +722,7 @@ def check_update_ragged(torch, K, dtype_name, rng):
     sigma2, rcond = 0.01, 1e-12
     for U, R2, D in RAGGED_UPDATE_SHAPES:
         draws = [ragged_update_inputs(torch, dtype, rng, U, R2, D) for _ in range(RAGGED_BATCH)]
+        path = launch1_form(torch, lambda: K.update_terms_fused(*draws[0], sigma2, rcond))
         singles = []
         errs, near = {}, []
         for b, args in enumerate(draws):
@@ -671,7 +751,8 @@ def check_update_ragged(torch, K, dtype_name, rng):
                   f"update terms ragged {U}x{R2}x{D} batched: sequence {b} differs from its "
                   "single launch")
         ea, er = _worst(errs)
-        log(f"update terms  ragged U={U} 2M={R2} D={D}: max abs {ea:.3e} rel {er:.3e} over "
+        log(f"update terms  ragged U={U} 2M={R2} D={D} ({path} launch 1): max abs {ea:.3e} "
+            f"rel {er:.3e} over "
             f"{RAGGED_BATCH} draws; "
             + (f"decisions near the threshold on {near}; " if near else "decisions equal; ")
             + f"padding, NaN, failing and inf tracks rejected; repeated calls and the batched "
@@ -721,7 +802,7 @@ def phase_kernels_batched(torch, K, cfg, rng):
 
         cases = (
             ("batched_gating_gamma", K.batched_gating_gamma, (S, r), (), gating_plain,
-             "gating_kernel", (U, n)),
+             "gate_kernel", (U, n)),
             ("verification_scores", K.verification_scores, stacked(1), (),
              K.verification_scores_plain, "verification_kernel", (F, M)),
             ("p15_recurrence_fused", K.p15_recurrence_fused, stacked(2), (),
@@ -732,7 +813,7 @@ def phase_kernels_batched(torch, K, cfg, rng):
              (rcond, cfg.width, cfg.height), K.triage_refresh_fused_plain, "triage_kernel",
              (F, M)),
             ("update_terms_fused", K.update_terms_fused, (H, Hf, ru, P, ucrit, sel_ok),
-             (sigma2, rcond), update_plain, UPDATE_LAUNCHES, (Uu, n2, D)),
+             (sigma2, rcond), update_plain, UPDATE_KERNELS, (Uu, n2, D)),
         )
         log(f"-- batched kernels, {dtype_name} (tolerance rtol {tol}; update terms at "
             f"B={H.shape[0]}, the others at B={BATCH})")
@@ -1320,6 +1401,11 @@ def main(argv=None) -> int:
         phase_parity(torch, pkg, K, seq, "default")
         phase_parity(torch, pkg, K, seq, "fused", update_kernel="fused")
         phase_parity(torch, pkg, K, seq, "plain triage", use_pallas_triage=False)
+        # 2M = 80 and D = 246: shapes past the earlier kernels' card-only limits
+        phase_parity(torch, pkg, K, seq, "default, n_cam_slots=41 m_max=40", n_cam_slots=41,
+                     m_max=40)
+        phase_parity(torch, pkg, K, seq, "fused, n_cam_slots=41 m_max=40", update_kernel="fused",
+                     n_cam_slots=41, m_max=40)
         phase_parity_batched(torch, pkg, K)
     # each kernel's launches come from the driven run of its path
     launches = dict.fromkeys(K.LAUNCHES)

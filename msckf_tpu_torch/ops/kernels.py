@@ -137,8 +137,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
 _SIGNATURES = {
-    # S, r, gamma, U, n, stream (a batch of sequences flattens into U)
-    "msckf_gating": (_P, _P, _P, _I, _I, _P),
+    # S, r, gamma, scratch (or None), U, n, stream (a batch of sequences
+    # flattens into U)
+    "msckf_gating": (_P, _P, _P, _P, _I, _I, _P),
     # R1, t1, kp1, kp2, consts(camR 9 | camt 3 | K 9 | Kinv 9), homo, epi, base, F, M,
     # B, stream
     "msckf_verification": (_P,) * 8 + (_I, _I, _I, _P),
@@ -150,9 +151,13 @@ _SIGNATURES = {
     "msckf_propagate_block": (_P,) * 25 + (_I, _I, _P),
     # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, B, stream
     "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I, _I, _I, _P),
-    # H, Hf, r, P, crit, sel_ok, | Ht, rt, Apart, cpart (scratch), A, c, passed,
-    # U, 2M, D, B, tracks per chunk, sigma2, eps, stream
-    "msckf_update_terms": (_P,) * 13 + (_I,) * 5 + (_D, _D, _P),
+    # H, Hf, r, P, crit, sel_ok, | Ht, rt, Ss, gate scratch (or None), Apart,
+    # cpart (scratch), A, c, passed, U, 2M, D, B, tracks per chunk, sigma2,
+    # eps, stream
+    "msckf_update_terms": (_P,) * 15 + (_I,) * 5 + (_D, _D, _P),
+    # a query, no stream: the gate's global scratch per system of n rows (0
+    # where it works in shared memory)
+    "msckf_gate_scratch": (_I,),
 }
 
 
@@ -174,6 +179,16 @@ def _launch(name: str, dtype: torch.dtype, *args) -> None:
     err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}{suffix} launch failed: cudaError {err}")
+
+
+def _query(name: str, dtype: torch.dtype, *args) -> int:
+    """A query of the kernel library about the current device (no launch);
+    raises on a negative (failed) answer."""
+    suffix = "_f32" if dtype == torch.float32 else "_f64"
+    out = getattr(_library(), name + suffix)(*args)
+    if out < 0:
+        raise RuntimeError(f"{name}{suffix} failed: cudaError {-out}")
+    return out
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -246,7 +261,6 @@ def _batched_call(launch, check, plain, info, in_dims, args, n_tensors):
 # --------------------------------------------------------------------------
 
 GATING_NB = 8
-GATING_MAX_N = 64
 
 
 def batched_gating_gamma_plain(S: torch.Tensor, r: torch.Tensor, nb: int = GATING_NB):
@@ -281,6 +295,25 @@ def batched_gating_gamma_plain(S: torch.Tensor, r: torch.Tensor, nb: int = GATIN
     return gamma
 
 
+@functools.lru_cache(maxsize=None)
+def gate_scratch_elems(dtype: torch.dtype, n: int, device: torch.device) -> int:
+    """Elements of the gate's global scratch per system of n rows on the
+    device: 0 where a system's working set fits in shared memory (the
+    kernel library's own answer, asked once per device, dtype and n)."""
+    return _query("msckf_gate_scratch", dtype, n)
+
+
+def gate_scratch(nsys: int, n: int, dtype: torch.dtype, device) -> torch.Tensor | None:
+    """The gate's global scratch for nsys systems of n rows: None where a
+    system's working set fits in shared memory, else nsys working sets."""
+    per = gate_scratch_elems(dtype, n, torch.device(device))
+    return torch.empty(nsys * per, dtype=dtype, device=device) if per else None
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
 def _gating(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     dt = _float_dtype(S)
     U, n = S.shape[0], S.shape[-1]
@@ -288,12 +321,12 @@ def _gating(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     _check(r, "r", (U, n), dt, S.device)
     if S.device.type == "cpu":
         return batched_gating_gamma_plain(S, r)
-    if n > GATING_MAX_N:
-        raise ValueError(f"gating kernel takes n <= {GATING_MAX_N}, got {n}")
+    if U * n == 0:
+        return torch.zeros(U, dtype=dt, device=S.device)
     gamma = torch.empty(U, dtype=dt, device=S.device)
-    if U == 0:
-        return gamma
-    _launch("msckf_gating", dt, S.data_ptr(), r.data_ptr(), gamma.data_ptr(), U, n)
+    scratch = gate_scratch(U, n, dt, S.device)
+    _launch("msckf_gating", dt, S.data_ptr(), r.data_ptr(), gamma.data_ptr(), _ptr(scratch),
+            U, n)
     LAUNCHES["batched_gating_gamma"] += 1
     return gamma
 
@@ -922,34 +955,47 @@ def update_chunk_plan(U: int, R2: int) -> tuple[int, int]:
     """(tracks per chunk, chunks) of the update-terms accumulation for U
     tracks of 2M = R2 rows: chunk k holds tracks [k t, min((k + 1) t, U)).
     The plan fixes the kernel's order of summation, so it depends on U and
-    2M only, never on the batch. Raises ValueError for 2M outside
-    [1, 64], which the kernel's in-block gate cannot take."""
-    if not 1 <= R2 <= GATING_MAX_N:
-        raise ValueError(f"update-terms kernel takes 1 <= 2M <= {GATING_MAX_N}, got {R2}")
+    2M only, never on the batch. Raises ValueError for 2M < 1."""
+    if R2 < 1:
+        raise ValueError(f"update-terms kernel takes 2M >= 1, got {R2}")
     if U < 0:
         raise ValueError(f"update-terms kernel takes U >= 0, got {U}")
     tpc = min(UPDATE_CHUNK_MAX_TRACKS, max(1, UPDATE_CHUNK_ROWS // R2))
     return tpc, -(-U // tpc)
 
 
+def update_terms_scratch(B: int, U: int, R2: int, D: int, dtype: torch.dtype, device) -> dict:
+    """The update-terms call's scratch, from the chunk plan (never from B
+    beyond the leading axis): H~ and r~ (B, U, 2M, D) and (B, U, 2M), S
+    (B, U, 2M, 2M; launch 1 writes its upper triangle, the gate reads it),
+    the gate's global scratch (None where it works in shared memory), and
+    the partials (B, chunks, D, D) and (B, chunks, D)."""
+    _, n_chunks = update_chunk_plan(U, R2)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=dtype, device=device)
+
+    return {"Ht": empty(B, U, R2, D), "rt": empty(B, U, R2), "Ss": empty(B, U, R2, R2),
+            "gate": gate_scratch(B * U, R2, dtype, device),
+            "Apart": empty(B, n_chunks, D, D), "cpart": empty(B, n_chunks, D)}
+
+
 def _update_terms_launch(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
     dt, B, U, R2, D = _update_terms_check(H, Hf, r, P, crit, sel_ok)
     dev = H.device
-    if B * U * R2 == 0 and R2 <= GATING_MAX_N:
+    if B * U * R2 == 0:
         return (torch.zeros((B, D, D), dtype=dt, device=dev),
                 torch.zeros((B, D), dtype=dt, device=dev),
                 torch.zeros((B, U), dtype=torch.bool, device=dev))
-    tpc, n_chunks = update_chunk_plan(U, R2)
-    Ht = torch.empty((B, U, R2, D), dtype=dt, device=dev)
-    rt = torch.empty((B, U, R2), dtype=dt, device=dev)
-    Apart = torch.empty((B, n_chunks, D, D), dtype=dt, device=dev)
-    cpart = torch.empty((B, n_chunks, D), dtype=dt, device=dev)
+    tpc, _ = update_chunk_plan(U, R2)
+    sc = update_terms_scratch(B, U, R2, D, dt, dev)
     A = torch.empty((B, D, D), dtype=dt, device=dev)
     c = torch.empty((B, D), dtype=dt, device=dev)
     passed = torch.empty((B, U), dtype=torch.bool, device=dev)
     _launch("msckf_update_terms", dt,
-            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok, Ht, rt, Apart, cpart, A, c,
-                                     passed)),
+            *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok)),
+            *(_ptr(sc[k]) for k in ("Ht", "rt", "Ss", "gate", "Apart", "cpart")),
+            *(t.data_ptr() for t in (A, c, passed)),
             U, R2, D, B, tpc, float(sigma2), 3.0 * float(rcond))
     LAUNCHES["update_terms_fused"] += 1
     return A, c, passed
@@ -961,9 +1007,9 @@ def update_terms_fused(H: torch.Tensor, Hf: torch.Tensor, r: torch.Tensor, P: to
                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """H (U, 2M, D), Hf (U, 2M, 3), r (U, 2M), P (D, D), crit (U,) with NaN
     for a track that must fail, sel_ok (U,) bool -> A (D, D), c (D,),
-    passed (U,) bool. One call is three launches (per-track terms and gate,
-    the masked accumulation's partial sums by chunk of tracks, their sum),
-    counted as one."""
+    passed (U,) bool. One call is four launches (per-track projector and
+    S, the gate, the masked accumulation's partial sums by chunk of tracks,
+    their sum; five on the general form of the first), counted as one."""
     return _single_call(_update_terms_launch, _update_terms_check, update_terms_fused_plain,
                         (H, Hf, r, P, crit, sel_ok), (sigma2, rcond))
 

@@ -44,7 +44,7 @@ def _spd(rng, U, n, k=None):
     return S, r
 
 
-@pytest.mark.parametrize("U,n,k", [(16, 16, 16), (8, 24, 10), (5, 16, 6)])
+@pytest.mark.parametrize("U,n,k", [(16, 16, 16), (8, 24, 10), (5, 16, 6), (3, 72, 72)])
 def test_gating_plain_matches_pallas(U, n, k):
     rng = np.random.default_rng(U * 100 + n)
     S, r = _spd(rng, U, n, k)
@@ -239,10 +239,11 @@ def _update_terms_inputs(rng, U, R2=12, D=27):
     return H, Hf, r, Pm @ Pm.T, crit, sel_ok
 
 
-@pytest.mark.parametrize("U", [6, 13])
-def test_update_terms_plain_matches_pallas(U):
+@pytest.mark.parametrize("U,R2,D", [(6, 12, 27), (13, 12, 27), (5, 80, 30)],
+                         ids=["6", "13", "5-2M80-D30"])
+def test_update_terms_plain_matches_pallas(U, R2, D):
     rng = np.random.default_rng(U)
-    args = _update_terms_inputs(rng, U)
+    args = _update_terms_inputs(rng, U, R2, D)
     sigma2, rcond = 0.01, 1e-12
     A_w, c_w, p_w = pk.update_terms_fused(*map(jnp.asarray, args), sigma2, rcond,
                                           interpret=True)
@@ -254,7 +255,8 @@ def test_update_terms_plain_matches_pallas(U):
     _close(c.numpy(), np.asarray(c_w))
 
 
-@pytest.mark.parametrize("U,R2", [(128, 64), (13, 12), (12, 16), (37, 40), (1, 1), (5, 64), (0, 8)])
+@pytest.mark.parametrize("U,R2", [(128, 64), (13, 12), (12, 16), (37, 40), (1, 1), (5, 64), (0, 8),
+                                  (8, 65), (8, 128)])
 def test_update_chunk_plan_covers_every_row_once(U, R2):
     """The accumulation's chunks hold whole tracks, every track (so every
     row) in exactly one chunk, in order, and about 512 rows each."""
@@ -269,7 +271,7 @@ def test_update_chunk_plan_covers_every_row_once(U, R2):
         assert (tpc, n) == (8, 16)  # the TPU kernel's tile of 8 tracks
 
 
-@pytest.mark.parametrize("R2", [0, 65, 128])
+@pytest.mark.parametrize("R2", [0])
 def test_update_chunk_plan_rejects_2m_outside_the_gate(R2):
     with pytest.raises(ValueError, match="2M"):
         K.update_chunk_plan(8, R2)
@@ -279,22 +281,33 @@ def test_update_terms_scratch_follows_the_plan_not_the_batch(monkeypatch):
     """The wrapper's launcher sizes the partials scratch (B, chunks, D, D)
     and (B, chunks, D) from the plan and passes the same tracks per chunk
     whatever the batch, so a batched call sums in a single call's order;
-    2M > 64 raises before any launch. The launch itself is recorded, not
-    made: the tests run on the CPU."""
+    2M > 64 (the general form of launch 1) launches as well, with S's
+    scratch (B, U, 2M, 2M) and, where the gate's working set leaves shared
+    memory, a gate scratch of B * U working sets. The launch itself is
+    recorded, not made, and the library's answers are stubbed: the tests
+    run on the CPU."""
     calls = []
+    gate_elems = {65: 65 * 66 // 2 + 9 * 65}  # as if 2M = 65 left shared memory
     monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append(args))
+    monkeypatch.setattr(K, "gate_scratch_elems", lambda dt, n, device: gate_elems.get(n, 0))
     rng = np.random.default_rng(3)
-    U, R2, D = 37, 40, 20
-    tpc, n = K.update_chunk_plan(U, R2)
-    for B in (1, 3):
-        H, Hf, r, P, crit, sel = (_t(np.stack([a] * B)) for a in _update_terms_inputs(rng, U, R2, D))
-        ptr = {t.data_ptr(): t for t in (H, Hf, r, P, crit, sel)}
-        A, c, passed = K._update_terms_launch(H, Hf, r, P, crit, sel, 0.01, 1e-12)
-        assert A.shape == (B, D, D) and c.shape == (B, D) and passed.shape == (B, U)
-        args = calls[-1]
-        assert args[:6] == tuple(ptr)
-        assert args[13:18] == (U, R2, D, B, tpc)
-    with pytest.raises(ValueError, match="2M"):
-        K._update_terms_launch(*(_t(a[None]) for a in _update_terms_inputs(rng, 4, 65, D)),
-                               0.01, 1e-12)
-    assert len(calls) == 2
+    D = 20
+    for U, R2 in ((37, 40), (4, 65)):
+        tpc, n = K.update_chunk_plan(U, R2)
+        for B in (1, 3):
+            H, Hf, r, P, crit, sel = (_t(np.stack([a] * B))
+                                      for a in _update_terms_inputs(rng, U, R2, D))
+            ptr = {t.data_ptr(): t for t in (H, Hf, r, P, crit, sel)}
+            A, c, passed = K._update_terms_launch(H, Hf, r, P, crit, sel, 0.01, 1e-12)
+            assert A.shape == (B, D, D) and c.shape == (B, D) and passed.shape == (B, U)
+            args = calls[-1]
+            assert args[:6] == tuple(ptr)
+            assert args[15:20] == (U, R2, D, B, tpc)
+            assert (args[9] is None) == (R2 not in gate_elems)
+            sc = K.update_terms_scratch(B, U, R2, D, torch.float64, "cpu")
+            assert sc["Ht"].shape == (B, U, R2, D) and sc["rt"].shape == (B, U, R2)
+            assert sc["Ss"].shape == (B, U, R2, R2)
+            assert sc["Apart"].shape == (B, n, D, D) and sc["cpart"].shape == (B, n, D)
+            assert (sc["gate"] is None if R2 not in gate_elems
+                    else sc["gate"].shape == (B * U * gate_elems[R2],))
+    assert len(calls) == 4
