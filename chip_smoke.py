@@ -10,11 +10,15 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               six CUDA kernels into msckf_tpu_torch/build/ and times it.
 2. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes, in float32 and float64, on seeded
-              inputs: equal gate/verification/triage decisions, floats
-              within the stated tolerances; CUDA-event times of kernel,
-              plain version and (gating) a library yardstick; the bound for
-              each. The gate also at n = 80 and 130 (and, in float64, 240,
-              whose working set lies in a global scratch). The update terms
+              inputs: equal gate/verification decisions, the triage's m,
+              rho and ok bitwise equal, floats within the stated
+              tolerances; CUDA-event times of kernel, plain version and
+              (gating) a library yardstick; the bound for each. The triage
+              also at (F, M) = (768, 32), (769, 40), (13, 1) and (5, 7), the
+              P15 recurrence at nt = 3, 9 and 64, each also batched at
+              B = 4 bitwise against its single launches. The gate also at
+              n = 80 and 130 (and, in float64, 240, whose working set lies
+              in a global scratch). The update terms
               also at six ragged shapes up to 2M = 80 and D = 294, on both
               forms of their first launch (single and batched at B = 4,
               bitwise), with the device time of each of their four launches
@@ -122,6 +126,14 @@ RAGGED_BATCH = 4
 GATE_SHAPES = (80, 130)
 GATE_GLOBAL_N = 240
 GATE_U = 32
+# (F, M) of the triage checks beyond the main path's: a ragged last block
+# with M past one warp (M = 40: m_max = 40), M = 1, and F and M below one
+# block's plan; ticks of the P15 checks: 3 and 9 in one chunk, 64 in several
+# (in both types); each also batched, B sequences against their singles
+TRIAGE_SHAPES = ((768, 32), (769, 40), (13, 1), (5, 7))
+TRIAGE_BATCH = 4
+P15_TICKS = (3, 9, 64)
+P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
@@ -301,6 +313,41 @@ def gate_inputs(rng, U, n):
     return S, r, chi2.ppf(0.95, dof)
 
 
+def p15_inputs(torch, dtype, rng, nt):
+    """P0, Phi and Qd of an nt-tick P15 block: Phi near the identity, P0 and
+    Qd symmetric positive semi-definite."""
+    L = rng.normal(size=(15, 15)) * 0.01
+    Phi = np.eye(15) + rng.normal(size=(nt, 15, 15)) * 0.01
+    Lq = rng.normal(size=(nt, 15, 15)) * 1e-4
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=DEVICE)
+                 for a in (L @ L.T, Phi, Lq @ Lq.transpose(0, 2, 1)))
+
+
+def triage_inputs(torch, dtype, rng, F, M, cfg):
+    """Triage inputs for F >= 4 tracks of M observations: each track's point
+    seen along noisy lines from its n_obs camera centres (the first the
+    anchor, rotated little, so that most points project into the image);
+    unused observation slots zero, as in the track store. Track 1 lies
+    behind its anchor, track 2 outside the image, track 3 has all weights
+    zero."""
+    t_a = rng.normal(size=(F, 3))
+    R_a = _rotations(rng, F, 0.1)
+    Ci = np.concatenate([rng.uniform(-1.0, 1.0, (F, 2)), rng.uniform(3.0, 8.0, (F, 1))], 1)
+    Ci[1] = [0.1, 0.1, -5.0]
+    Ci[2] = [15.0, 0.0, 5.0]
+    wp = t_a + np.einsum("fij,fj->fi", R_a, Ci)
+    live = np.arange(M)[None, :] < rng.integers(min(2, M), M + 1, F)[:, None]
+    bases = t_a[:, None, :] + rng.normal(size=(F, M, 3))
+    bases[:, 0] = t_a
+    dirs = wp[:, None, :] - bases + rng.normal(size=(F, M, 3)) * 0.01
+    bases[~live] = 0.0
+    dirs[~live] = 0.0
+    weights = np.where(live, rng.uniform(0.5, 1.0, (F, M)), 0.0)
+    weights[3] = 0.0
+    return tuple(torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=DEVICE)
+                 for a in (bases, dirs, weights, R_a, t_a, cfg.K_np, cfg.K_inv_np))
+
+
 def kernel_inputs(torch, dtype, rng, cfg):
     """Seeded inputs at the main path's shapes (U = u_max systems of
     n = 2 m_max rows; F x M = f_max x m_max verification pairs; a 9-tick P15
@@ -327,11 +374,7 @@ def kernel_inputs(torch, dtype, rng, cfg):
     )
 
     # P15 recurrence over the 9 IMU-only ticks of a frame block
-    B = 9
-    L = rng.normal(size=(15, 15)) * 0.01
-    Phi = np.eye(15) + rng.normal(size=(B, 15, 15)) * 0.01
-    Lq = rng.normal(size=(B, 15, 15)) * 1e-4
-    p15 = (t(L @ L.T), t(Phi), t(Lq @ Lq.transpose(0, 2, 1)))
+    p15 = p15_inputs(torch, dtype, rng, 9)
 
     def prop_inputs(Bp, prop_count, pad):
         ts = 1.0 + 0.005 * np.arange(1, Bp + 1)
@@ -354,26 +397,7 @@ def kernel_inputs(torch, dtype, rng, cfg):
     propagate = prop_inputs(1, 10, 0)
     propagate_checks = [prop_inputs(1, 0, 0), prop_inputs(2, 5, 1)]
 
-    # triage: each track's point seen along noisy lines from its n_obs
-    # camera centres (the first the anchor, rotated little, so that most
-    # points project into the image); unused observation slots zero, as in
-    # the track store. Track 1 lies behind its anchor, track 2 outside the
-    # image, track 3 has all weights zero.
-    t_a = rng.normal(size=(F, 3))
-    R_a = _rotations(rng, F, 0.1)
-    Ci = np.concatenate([rng.uniform(-1.0, 1.0, (F, 2)), rng.uniform(3.0, 8.0, (F, 1))], 1)
-    Ci[1] = [0.1, 0.1, -5.0]
-    Ci[2] = [15.0, 0.0, 5.0]
-    wp = t_a + np.einsum("fij,fj->fi", R_a, Ci)
-    live = np.arange(M)[None, :] < rng.integers(2, M + 1, F)[:, None]
-    bases = t_a[:, None, :] + rng.normal(size=(F, M, 3))
-    bases[:, 0] = t_a
-    dirs = wp[:, None, :] - bases + rng.normal(size=(F, M, 3)) * 0.01
-    bases[~live] = 0.0
-    dirs[~live] = 0.0
-    weights = np.where(live, rng.uniform(0.5, 1.0, (F, M)), 0.0)
-    weights[3] = 0.0
-    triage = (t(bases), t(dirs), t(weights), t(R_a), t(t_a), t(cfg.K_np), t(cfg.K_inv_np))
+    triage = triage_inputs(torch, dtype, rng, F, M, cfg)
 
     # update terms at U = u_max, 2M = 64 over the camera span, D = 6N = 192,
     # as the filter calls it: each observation's two rows in one 6-column
@@ -422,6 +446,7 @@ def phase_kernels(torch, K, cfg, rng):
         tol = TOL[dtype_name]
         (gating, verification, p15, propagate, propagate_checks, triage,
          update) = kernel_inputs(torch, dtype, rng, cfg)
+        sz = torch.empty((), dtype=dtype).element_size()
         log(f"-- kernels, {dtype_name} (tolerance rtol {tol})")
 
         # 1. gating
@@ -500,6 +525,7 @@ def phase_kernels(torch, K, cfg, rng):
         log(_per_output(errs))
         rows["p15_recurrence_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
                                             by=bby, lib=None)
+        check_p15_shapes(torch, K, dtype_name, rng)
 
         # 4. propagation block (B = 1 as on the path; the first-step null
         # state and a padding tick are checked too)
@@ -531,7 +557,8 @@ def phase_kernels(torch, K, cfg, rng):
         rows["propagate_block_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
                                              by=bby, lib=None)
 
-        # 5. triage (bitwise equal by construction: no FMA contraction)
+        # 5. triage (bitwise equal by construction: no FMA contraction, the
+        # plain version's order of summation)
         rcond = default_rcond(dtype)
         targs = (*triage, rcond, cfg.width, cfg.height)
         F, M = triage[2].shape
@@ -539,7 +566,8 @@ def phase_kernels(torch, K, cfg, rng):
         out_p = K.triage_refresh_fused_plain(*targs)
         torch.cuda.synchronize()
         ok = out_k[2]
-        check(torch.equal(ok, out_p[2]), "triage: ok decisions differ")
+        check(all(same_bits(torch, a, b) for a, b in zip(out_k, out_p)),
+              "triage: m, rho or ok not bitwise equal to the plain version")
         check(not ok[1] and not ok[2], "triage: a point behind or outside its anchor passed")
         errs = {"m": assert_close("triage m", out_k[0], out_p[0], tol, floor=True),
                 "rho": assert_close("triage rho", out_k[1], out_p[1], tol)}
@@ -548,12 +576,12 @@ def phase_kernels(torch, K, cfg, rng):
         dev_ms = kernel_only_ms(torch, lambda: K.triage_refresh_fused(*targs), "triage_kernel")
         plain = time_ms(torch, lambda: K.triage_refresh_fused_plain(*targs))
         bms, bby = kernel_bound("triage_refresh_fused", (F, M), dtype_name)
-        log(f"triage        F={F} M={M}: max abs {ea:.3e} rel {er:.3e}; {int(ok.sum())}/{F} ok "
-            f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
-            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
-        log(_per_output(errs))
+        log(f"triage        F={F} M={M}: m, rho and ok bitwise equal to the plain version; "
+            f"{int(ok.sum())}/{F} ok; kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
+            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby}); plan {K.triage_plan(F, M, 1, sz)}")
         rows["triage_refresh_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
                                             by=bby, lib=None)
+        check_triage_shapes(torch, K, dtype_name, rng, cfg)
 
         # 6. fused update terms. The kernel builds S by its own loops and the
         # plain version by matrix products, so gamma differs by round-off:
@@ -633,6 +661,76 @@ def check_gate_shapes(torch, K, dtype_name, rng):
             + f"; kernel only {_fmt_ms(dev_ms)}")
 
 
+def check_triage_shapes(torch, K, dtype_name, rng, cfg):
+    """The triage kernel at TRIAGE_SHAPES (a ragged last block, M past one
+    warp, M = 1, F and M below one block's plan): m, rho and ok bitwise
+    equal to the plain version's, and a batched launch of TRIAGE_BATCH
+    sequences bitwise equal to its single launches."""
+    from msckf_tpu_torch.ops.smallmat import default_rcond
+
+    dtype = getattr(torch, dtype_name)
+    sz = torch.empty((), dtype=dtype).element_size()
+    scalars = (default_rcond(dtype), cfg.width, cfg.height)
+    for F, M in TRIAGE_SHAPES:
+        draws = [triage_inputs(torch, dtype, rng, F, M, cfg) for _ in range(TRIAGE_BATCH)]
+        singles = []
+        for args in draws:
+            out_k = K.triage_refresh_fused(*args, *scalars)
+            out_p = K.triage_refresh_fused_plain(*args, *scalars)
+            torch.cuda.synchronize()
+            check(all(same_bits(torch, a, b) for a, b in zip(out_k, out_p)),
+                  f"triage F={F} M={M}: m, rho or ok not bitwise equal to the plain version")
+            # (with one observation the intersection is degenerate: no test)
+            check(M == 1 or (not out_k[2][1] and not out_k[2][2]),
+                  f"triage F={F} M={M}: a point behind or outside its anchor passed")
+            singles.append(out_k)
+        stacked = [torch.stack([d[j] for d in draws]) for j in range(7)]
+        K.reset_launches()
+        out = torch.func.vmap(lambda *a: K.triage_refresh_fused(*a, *scalars))(*stacked)
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["triage_refresh_fused"] == 1, "triage batched: more than one launch")
+        for b, one in enumerate(singles):
+            check(all(same_bits(torch, o[b], w) for o, w in zip(out, one)),
+                  f"triage F={F} M={M} batched: sequence {b} differs from its single launch")
+        dev_ms = kernel_only_ms(torch, lambda: K.triage_refresh_fused(*draws[0], *scalars),
+                                "triage_kernel")
+        log(f"triage        F={F} M={M}: m, rho and ok bitwise equal to the plain version over "
+            f"{TRIAGE_BATCH} draws, the batched launch (B={TRIAGE_BATCH}) bitwise equal to the "
+            f"single ones; plan {K.triage_plan(F, M, 1, sz)}; kernel only {_fmt_ms(dev_ms)}")
+
+
+def check_p15_shapes(torch, K, dtype_name, rng):
+    """The P15 recurrence at P15_TICKS ticks (one chunk, several chunks of
+    the ring): within the tolerance of the plain version, and a batched
+    launch of P15_BATCH sequences bitwise equal to its single launches."""
+    dtype = getattr(torch, dtype_name)
+    tol = TOL[dtype_name]
+    sz = torch.empty((), dtype=dtype).element_size()
+    for nt in P15_TICKS:
+        draws = [p15_inputs(torch, dtype, rng, nt) for _ in range(P15_BATCH)]
+        singles, errs = [], {}
+        for b, args in enumerate(draws):
+            out_k = K.p15_recurrence_fused(*args)
+            out_p = K.p15_recurrence_fused_plain(*args)
+            torch.cuda.synchronize()
+            for nm, a, w in zip(("P", "Phi_acc", "sig"), out_k, out_p):
+                errs[f"{nm}{b}"] = assert_close(f"p15 nt={nt} {nm}", a, w, tol, floor=True)
+            singles.append(out_k)
+        stacked = [torch.stack([d[j] for d in draws]) for j in range(3)]
+        K.reset_launches()
+        out = torch.func.vmap(K.p15_recurrence_fused)(*stacked)
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["p15_recurrence_fused"] == 1, "p15 batched: more than one launch")
+        for b, one in enumerate(singles):
+            check(all(same_bits(torch, o[b], w) for o, w in zip(out, one)),
+                  f"p15 nt={nt} batched: sequence {b} differs from its single launch")
+        ea, er = _worst(errs)
+        dev_ms = kernel_only_ms(torch, lambda: K.p15_recurrence_fused(*draws[0]), "p15_kernel")
+        log(f"p15           nt={nt}: max abs {ea:.3e} rel {er:.3e} over {P15_BATCH} draws, the "
+            f"batched launch (B={P15_BATCH}) bitwise equal to the single ones; plan (ticks a "
+            f"chunk, chunks, shared bytes) {K.p15_plan(nt, sz)}; kernel only {_fmt_ms(dev_ms)}")
+
+
 def update_matmul_ms(torch, H_t, P) -> float:
     """Yardstick beside the update-terms kernel (never called by the port):
     CUDA-event time of the three products the hybrid path computes for the
@@ -700,13 +798,19 @@ def launch1_form(torch, fn) -> str:
     "general" (update_project_kernel, update_s_kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    # the profiler now and then hands back a window without the device's
+    # kernel records (only the runtime's calls): such a window tells
+    # nothing, so it is taken again, up to three times
+    for _ in range(3):
         torch.cuda.synchronize()
-    keys = [e.key for e in prof.key_averages()]
-    fast = any("update_track_kernel" in k for k in keys)
-    general = any("update_s_kernel" in k for k in keys)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        keys = [e.key for e in prof.key_averages()]
+        fast = any("update_track_kernel" in k for k in keys)
+        general = any("update_s_kernel" in k for k in keys)
+        if fast or general:
+            break
     check(fast != general, f"update terms: launch 1's form not told by the profile ({keys})")
     return "fast" if fast else "general"
 
@@ -851,6 +955,9 @@ def phase_kernels_batched(torch, K, cfg, rng):
             if name == "batched_gating_gamma":
                 check(torch.equal(out[0] <= crit, want[0] <= crit),
                       "gating batched: gate decisions differ from plain")
+            if name == "triage_refresh_fused":
+                check(all(same_bits(torch, o, w) for o, w in zip(out, want)),
+                      "triage batched: m, rho or ok not bitwise equal to the plain version")
             ea, er = _worst(errs)
             ms = time_ms(torch, run)
             dev_ms = kernel_only_ms(torch, run, match)
@@ -1379,8 +1486,14 @@ def main(argv=None) -> int:
     log(f"== build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     build_log = K.BUILD_DIR / "build.log"
     if build_log.exists():
+        # registers of every kernel; for the triage and P15 kernels also the
+        # entry each line belongs to, its shared memory and spills
+        detail = False
         for line in build_log.read_text().splitlines():
-            if "registers" in line or line.startswith("=="):
+            if line.startswith("=="):
+                detail = line.split()[-1] in ("triage.cu", "p15_recurrence.cu")
+            if (line.startswith("==") or "registers" in line
+                    or (detail and ("Compiling entry" in line or "spill" in line))):
                 log("   " + line.strip())
 
     cfg = pkg.reference_experiment_config()

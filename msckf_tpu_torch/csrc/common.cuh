@@ -33,6 +33,33 @@ struct alignas(2 * sizeof(T)) V2 {
   T v[2];
 };
 
+// cp.async of N bytes (4, 8 or 16) from global to shared memory; 16-byte
+// copies bypass L1
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N)
+                 : "memory");
+  }
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// a 16-byte load
+template <typename T>
+__device__ __forceinline__ V16<T> ld16(const T* p) {
+  return *reinterpret_cast<const V16<T>*>(p);
+}
+
 constexpr int kMaxDevices = 64;
 
 // The dynamic-shared-memory opt-in of the current device

@@ -83,25 +83,6 @@ constexpr int kTile = 64;         // edge of an A tile in launch 2
 constexpr int kUnit = 32;         // rows per stage in launch 2
 constexpr int kMaxChunkTracks = 32;  // a chunk's decisions are one warp ballot
 
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (N == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src), "n"(N)
-                 : "memory");
-  }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N of this thread's groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Starts the copy of a rows x cols block of a row-major global matrix (row
 // stride lds) into shared memory (row stride ldd): entries with row <
 // rows_valid and col < cols_valid by cp.async, the others set to zero. cols
@@ -131,11 +112,6 @@ __device__ void load_async(T* dst, int ldd, const T* src, size_t lds, int rows, 
         *d = T(0);
     }
   }
-}
-
-template <typename T>
-__device__ __forceinline__ V16<T> ld16(const T* p) {
-  return *reinterpret_cast<const V16<T>*>(p);
 }
 
 // ---------------------------------------------------------------------------

@@ -143,14 +143,16 @@ _SIGNATURES = {
     # R1, t1, kp1, kp2, consts(camR 9 | camt 3 | K 9 | Kinv 9), homo, epi, base, F, M,
     # B, stream
     "msckf_verification": (_P,) * 8 + (_I, _I, _I, _P),
-    # P0, Phi, Qd, P, Phi_acc, sig, nt, B, stream
-    "msckf_p15_recurrence": (_P,) * 6 + (_I, _I, _P),
+    # P0, Phi, Qd, P, Phi_acc, sig, nt, B, ticks per chunk, shared bytes, stream
+    "msckf_p15_recurrence": (_P,) * 6 + (_I,) * 4 + (_P,),
     # R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc, g,
     # P15, | R, p, v, last_ts, prop_count, P15, Phi_acc, outR, outp, outv,
     # outsig, nt, B, stream
     "msckf_propagate_block": (_P,) * 25 + (_I, _I, _P),
-    # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, B, stream
-    "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I, _I, _I, _P),
+    # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, B,
+    # tracks per block, tracks and observations per pass, threads, shared
+    # bytes, stream
+    "msckf_triage": (_P,) * 7 + (_D, _D, _D) + (_P,) * 3 + (_I,) * 8 + (_P,),
     # H, Hf, r, P, crit, sel_ok, | Ht, rt, Ss, gate scratch (or None), Apart,
     # cpart (scratch), A, c, passed, U, 2M, D, B, tracks per chunk, sigma2,
     # eps, stream
@@ -521,14 +523,44 @@ def _p15_check(P0, Phi, Qd):
     return dt, B, nt
 
 
+# The kernels' launch plans assume what a block gets without an opt-in.
+SMEM_NO_OPTIN = 48 * 1024
+
+
+def _round_up(n: int, v: int) -> int:
+    return -(-n // v) * v
+
+
+# p15_recurrence.cu keeps two P buffers, Phi_i P and two Phi_acc buffers as
+# 16 x 16 matrices in rows of P15_PITCH elements, and a ring of two slots of
+# C ticks, each tick Phi_i as such a matrix and Qd_i as it is (15 x 15)
+P15_PITCH = 20
+
+
+def p15_plan(nt: int, itemsize: int) -> tuple[int, int, int]:
+    """(ticks per chunk C, chunks, shared-memory bytes) of the P15 recurrence
+    kernel for nt ticks in a type of ``itemsize`` bytes: the largest C whose
+    two ring slots fit SMEM_NO_OPTIN beside the fixed buffers (9 in f32, 4
+    in f64), at most nt. Raises ValueError for nt < 1."""
+    if nt < 1:
+        raise ValueError(f"P15 recurrence takes nt >= 1 ticks, got {nt}")
+    mat = 16 * P15_PITCH
+    fixed = 5 * mat * itemsize
+    tick = _round_up(mat + 225, 16 // itemsize) * itemsize
+    C = min(nt, (SMEM_NO_OPTIN - fixed) // (2 * tick))
+    chunks = -(-nt // C)
+    return C, chunks, fixed + min(chunks, 2) * C * tick
+
+
 def _p15_launch(P0, Phi, Qd):
     dt, B, nt = _p15_check(P0, Phi, Qd)
     dev = P0.device
     P = torch.empty((B, 15, 15), dtype=dt, device=dev)
     acc = torch.empty_like(P)
     sig = torch.empty((B, nt, 6), dtype=dt, device=dev)
+    C, _, smem = p15_plan(nt, P0.element_size())
     _launch("msckf_p15_recurrence", dt, P0.data_ptr(), Phi.data_ptr(), Qd.data_ptr(),
-            P.data_ptr(), acc.data_ptr(), sig.data_ptr(), nt, B)
+            P.data_ptr(), acc.data_ptr(), sig.data_ptr(), nt, B, C, smem)
     LAUNCHES["p15_recurrence_fused"] += 1
     return P, acc, sig
 
@@ -822,6 +854,43 @@ def _triage_check(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv):
     return dt, B, F, M
 
 
+# triage.cu: at most 256 observations and threads a pass, at most 32 tracks a
+# block (one warp of epilogues), and blocks enough for every SM of an H100
+# SXM (132)
+TRIAGE_MAX_THREADS = 256
+TRIAGE_MAX_TRACKS = 32
+TRIAGE_SMS = 132
+
+
+def triage_plan(F: int, M: int, B: int, itemsize: int) -> tuple[int, int, int, int, int]:
+    """(tracks per block, tracks per pass g, observations per pass mc,
+    threads, shared-memory bytes) of the triage kernel for B sequences of F
+    tracks of M observations in a type of ``itemsize`` bytes. A block's
+    tracks double up to TRIAGE_MAX_TRACKS while the B ceil(F / tracks)
+    blocks still cover every SM (4 at 768 x 32, 32 at B = 32); it walks
+    them in passes of g whole tracks (g mc <= TRIAGE_MAX_THREADS, 8 at
+    M = 32) or, past M = TRIAGE_MAX_THREADS, of one track's mc observations;
+    the threads cover a pass's observations, its 9 g summing lanes and the
+    block's epilogue lanes, in whole warps. The plan decides where each term
+    is computed, never the order of a sum, so the bits depend on it no more
+    than on B. Raises ValueError for F, M or B < 1."""
+    if F < 1 or M < 1 or B < 1:
+        raise ValueError(f"triage kernel takes F, M and B >= 1, got F={F}, M={M}, B={B}")
+    mc = min(M, TRIAGE_MAX_THREADS)
+    tracks = 1
+    while 2 * tracks <= TRIAGE_MAX_TRACKS and B * -(-F // (2 * tracks)) >= TRIAGE_SMS:
+        tracks *= 2
+    g = min(tracks, TRIAGE_MAX_THREADS // mc if mc == M else 1, TRIAGE_MAX_THREADS // 9)
+    threads = _round_up(max(g * mc, 9 * g, tracks), 32)
+    # a pass's base, dir and w; the block's anchor R and t; K and K^-1; a
+    # pass's terms in rows of odd pitch; the block's sums; each array on 16
+    # bytes (triage.cu, Layout)
+    v = 16 // itemsize
+    elems = sum(_round_up(n, v) for n in (3 * g * mc, 3 * g * mc, g * mc, 9 * tracks, 3 * tracks,
+                                          9, 9, 9 * g * (mc | 1), 9 * tracks))
+    return tracks, g, mc, threads, elems * itemsize
+
+
 def _triage_launch(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv, rcond,
                    width, height):
     tensors = (line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv)
@@ -834,7 +903,8 @@ def _triage_launch(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv, rc
         return m, rho, ok
     _launch("msckf_triage", dt, *(t.data_ptr() for t in tensors),
             3.0 * rcond, float(width), float(height),
-            m.data_ptr(), rho.data_ptr(), ok.data_ptr(), F, M, B)
+            m.data_ptr(), rho.data_ptr(), ok.data_ptr(), F, M, B,
+            *triage_plan(F, M, B, weights.element_size()))
     LAUNCHES["triage_refresh_fused"] += 1
     return m, rho, ok
 

@@ -125,7 +125,7 @@ def test_verification_plain_keeps_the_z_guard():
         _close(g.numpy(), np.asarray(w), floor=name == "epi")
 
 
-@pytest.mark.parametrize("B", [1, 2, 9])
+@pytest.mark.parametrize("B", [1, 2, 9, 64])
 def test_p15_plain_matches_pallas(B):
     rng = np.random.default_rng(B)
     L = rng.normal(size=(15, 15)) * 0.01
@@ -203,7 +203,7 @@ def _triage_inputs(rng, F, M):
     return bases, dirs, weights, R_a, t_a, K_, np.linalg.inv(K_)
 
 
-@pytest.mark.parametrize("F,M", [(10, 6), (64, 32), (33, 8)])
+@pytest.mark.parametrize("F,M", [(10, 6), (64, 32), (33, 8), (37, 40)])
 def test_triage_plain_matches_pallas(F, M):
     rng = np.random.default_rng(F * 100 + M)
     args = _triage_inputs(rng, F, M)
@@ -215,6 +215,87 @@ def test_triage_plain_matches_pallas(F, M):
     assert not ok[1] and not ok[2] and ok.sum() > F // 2
     _close(got[0].numpy(), np.asarray(want[0]))
     _close(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("F,M,B", [(768, 32, 1), (768, 32, 32), (1, 1, 1), (769, 40, 1),
+                                   (13, 1, 1), (5, 7, 3), (37, 40, 2), (3, 300, 2)])
+def test_triage_plan_covers_every_observation_once(F, M, B, itemsize):
+    """Blocks of whole tracks, walked in passes of g whole tracks (or, past
+    256 observations, one track's spans of mc): every (track, observation)
+    in exactly one pass, in m order within a track; a thread for each
+    observation of a pass, each of its 9 g summing lanes and each epilogue
+    lane; the shared memory within what a block gets without an opt-in."""
+    tracks, g, mc, threads, smem = K.triage_plan(F, M, B, itemsize)
+    assert 1 <= g <= tracks <= K.TRIAGE_MAX_TRACKS and 1 <= mc <= M
+    assert g == 1 or mc == M
+    assert g * mc <= K.TRIAGE_MAX_THREADS and threads % 32 == 0
+    assert max(g * mc, 9 * g, tracks) <= threads <= K.TRIAGE_MAX_THREADS
+    assert smem <= K.SMEM_NO_OPTIN
+    seen = []
+    for f0 in range(0, F, tracks):
+        nh = min(tracks, F - f0)
+        for s0 in range(0, nh, g):
+            for m0 in range(0, M, mc):
+                ng, mp = min(g, nh - s0), min(mc, M - m0)
+                seen += [(f0 + s0 + t, m0 + m) for t in range(ng) for m in range(mp)]
+    assert sorted(seen) == [(f, m) for f in range(F) for m in range(M)]
+    if (F, M) == (768, 32):  # the main path: 192 blocks over the 132 SMs; B = 32: 768
+        assert (tracks, g, threads) == ((4, 4, 128) if B == 1 else (32, 8, 256))
+    if F == 1:
+        assert (tracks, g, mc, threads) == (1, 1, 1, 32)
+
+
+@pytest.mark.parametrize("F,M", [(0, 4), (4, 0)])
+def test_triage_plan_rejects_empty_shapes(F, M):
+    with pytest.raises(ValueError, match="F, M and B"):
+        K.triage_plan(F, M, 1, 4)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("nt", [1, 3, 9, 10, 64])
+def test_p15_plan_chunks_fit_without_opt_in(nt, itemsize):
+    """The ring's chunks of C ticks cover the nt ticks, C is the most two
+    slots hold beside the fixed buffers (9 ticks in f32, 4 in f64), and the
+    shared memory stays within what a block gets without an opt-in."""
+    C, chunks, smem = K.p15_plan(nt, itemsize)
+    cmax = 9 if itemsize == 4 else 4
+    assert C == min(nt, cmax) and chunks == -(-nt // C) and (chunks - 1) * C < nt <= chunks * C
+    assert smem <= K.SMEM_NO_OPTIN
+    mat = 16 * K.P15_PITCH * itemsize
+    tick = -(-(16 * K.P15_PITCH + 225) // (16 // itemsize)) * 16
+    assert smem == 5 * mat + min(chunks, 2) * C * tick
+
+
+def test_p15_plan_rejects_no_ticks():
+    with pytest.raises(ValueError, match="nt >= 1"):
+        K.p15_plan(0, 4)
+
+
+def test_triage_and_p15_launchers_pass_their_plans(monkeypatch):
+    """The launchers hand the C entry points the plan of their shapes (the
+    triage's depends on B too, the P15 recurrence's on nt and the type) and
+    allocate the outputs with the batch axis. The launch itself is recorded,
+    not made: the tests run on the CPU."""
+    calls = []
+    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append((name, args)))
+    rng = np.random.default_rng(7)
+    for B, F, M in ((1, 37, 40), (3, 13, 1)):
+        args = [_t(np.stack([a] * B)) for a in _triage_inputs(rng, F, M)]
+        m, rho, ok = K._triage_launch(*args, 1e-12, 640, 480)
+        assert m.shape == (B, F, 3) and rho.shape == (B, F) and ok.shape == (B, F)
+        name, a = calls[-1]
+        assert name == "msckf_triage" and a[13:16] == (F, M, B)
+        assert a[16:] == K.triage_plan(F, M, B, 8)
+    for nt, dtype in ((64, torch.float32), (9, torch.float64)):
+        P0 = torch.eye(15, dtype=dtype)[None]
+        Phi = torch.eye(15, dtype=dtype).expand(2, nt, 15, 15).contiguous()
+        P, acc, sig = K._p15_launch(P0.expand(2, 15, 15).contiguous(), Phi, Phi.clone())
+        assert P.shape == (2, 15, 15) and sig.shape == (2, nt, 6)
+        name, a = calls[-1]
+        C, _, smem = K.p15_plan(nt, P0.element_size())
+        assert name == "msckf_p15_recurrence" and a[6:] == (nt, 2, C, smem)
+    assert len(calls) == 4
 
 
 def _update_terms_inputs(rng, U, R2=12, D=27):
