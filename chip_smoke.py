@@ -10,13 +10,18 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               six CUDA kernels into msckf_tpu_torch/build/ and times it.
 2. kernels  — each kernel against its plain PyTorch version on the card, at
               the main path's shapes, in float32 and float64, on seeded
-              inputs: equal gate/verification decisions, the triage's m,
-              rho and ok bitwise equal, floats within the stated
-              tolerances; CUDA-event times of kernel, plain version and
-              (gating) a library yardstick; the bound for each. The triage
-              also at (F, M) = (768, 32), (769, 40), (13, 1) and (5, 7), the
-              P15 recurrence at nt = 3, 9 and 64, each also batched at
-              B = 4 bitwise against its single launches. The gate also at
+              inputs: equal gate decisions, the verification's homo, epi
+              and base and the triage's m, rho and ok bitwise equal, floats
+              within the stated tolerances; CUDA-event times of kernel,
+              plain version and (gating) a library yardstick; the bound for
+              each; the launch floor (the device time of a one-element
+              fill). The verification also at (F, M) = (13, 1), (5, 7),
+              (37, 40) and (769, 32), and its whole call's device time
+              beside that of a torch.cat of its four constants into one
+              array. The triage also at (F, M) = (768, 32),
+              (769, 40), (13, 1) and (5, 7), the P15 recurrence at nt = 3,
+              9 and 64, each also batched at B = 4 bitwise against its
+              single launches. The gate also at
               n = 80 and 130 (and, in float64, 240, whose working set lies
               in a global scratch). The update terms
               also at six ragged shapes up to 2M = 80 and D = 294, on both
@@ -132,6 +137,12 @@ GATE_U = 32
 # (in both types); each also batched, B sequences against their singles
 TRIAGE_SHAPES = ((768, 32), (769, 40), (13, 1), (5, 7))
 TRIAGE_BATCH = 4
+# (F, M) of the verification checks beyond the main path's: M = 1, F x M
+# below one block, a ragged last block with M past one warp, F one past the
+# main path's; each also batched, VERIFY_BATCH sequences against their
+# singles
+VERIFY_SHAPES = ((13, 1), (5, 7), (37, 40), (769, 32))
+VERIFY_BATCH = 4
 P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
@@ -184,24 +195,38 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def kernel_only_ms(torch, fn, match, reps: int = 20):
+def kernel_only_ms(torch, fn, match=None, reps: int = 20):
     """Mean device time per call of the CUDA kernels whose name contains
     ``match`` (a string, or a tuple of strings for a call of several
-    kernels), from torch.profiler; None when it records no device time."""
+    kernels; None: every kernel the call launches), from torch.profiler;
+    None when it records no device time. A kernel's time a call is its mean
+    over the records the profiler kept (it now and then drops a window's
+    first one) times its launches a call, k, which its record count must
+    show: k * reps, or one less. A window that shows neither is taken
+    again, up to three times."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     matches = (match,) if isinstance(match, str) else match
-    total_us = sum(
-        getattr(e, "device_time_total", 0.0) for e in prof.key_averages()
-        if any(m in e.key for m in matches)
-    )
-    return total_us / reps / 1e3 if total_us > 0 else None
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, odd = 0.0, []
+        for e in prof.key_averages():
+            if (e.device_type != DeviceType.CUDA or not e.count
+                    or (matches is not None and not any(m in e.key for m in matches))):
+                continue
+            k = -(-e.count // reps)
+            if e.count < k * reps - 1:
+                odd.append(f"{e.count} records of {e.key}")
+            total_us += e.device_time_total / e.count * k
+        if not odd:
+            return total_us / 1e3 if total_us > 0 else None
+    raise SmokeFailure(f"profiler: {', '.join(odd)} in {reps} calls, three windows running")
 
 
 def _fmt_ms(x) -> str:
@@ -348,6 +373,23 @@ def triage_inputs(torch, dtype, rng, F, M, cfg):
                  for a in (bases, dirs, weights, R_a, t_a, cfg.K_np, cfg.K_inv_np))
 
 
+def verification_inputs(torch, dtype, rng, F, M, cfg):
+    """Seeded verification inputs for F x M pairs: observation poses near
+    the current camera, keypoints in the image, a share of short
+    baselines."""
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=DEVICE)
+
+    camR = _rotations(rng, 1, 0.5)[0]
+    camt = rng.normal(size=3)
+    R1 = camR[None] @ _rotations(rng, F * M, 0.2)
+    t1 = camt + rng.normal(size=(F * M, 3)) * np.where(rng.random((F * M, 1)) < 0.2, 0.003, 0.5)
+    kp1 = rng.uniform([0, 0], [640, 480], size=(F * M, 2))
+    kp2 = rng.uniform([0, 0], [640, 480], size=(F, 2))
+    return (t(R1.reshape(F, M, 3, 3)), t(t1.reshape(F, M, 3)), t(kp1.reshape(F, M, 2)),
+            t(kp2), t(camR), t(camt), t(cfg.K_np), t(cfg.K_inv_np))
+
+
 def kernel_inputs(torch, dtype, rng, cfg):
     """Seeded inputs at the main path's shapes (U = u_max systems of
     n = 2 m_max rows; F x M = f_max x m_max verification pairs; a 9-tick P15
@@ -360,18 +402,7 @@ def kernel_inputs(torch, dtype, rng, cfg):
 
     gating = tuple(map(t, gate_inputs(rng, U, n)))
 
-    # verification: observation poses near the current camera, keypoints
-    # in the image, a share of short baselines
-    camR = _rotations(rng, 1, 0.5)[0]
-    camt = rng.normal(size=3)
-    R1 = camR[None] @ _rotations(rng, F * M, 0.2)
-    t1 = camt + rng.normal(size=(F * M, 3)) * np.where(rng.random((F * M, 1)) < 0.2, 0.003, 0.5)
-    kp1 = rng.uniform([0, 0], [640, 480], size=(F * M, 2))
-    kp2 = rng.uniform([0, 0], [640, 480], size=(F, 2))
-    verification = (
-        t(R1.reshape(F, M, 3, 3)), t(t1.reshape(F, M, 3)), t(kp1.reshape(F, M, 2)),
-        t(kp2), t(camR), t(camt), t(cfg.K_np), t(cfg.K_inv_np),
-    )
+    verification = verification_inputs(torch, dtype, rng, F, M, cfg)
 
     # P15 recurrence over the 9 IMU-only ticks of a frame block
     p15 = p15_inputs(torch, dtype, rng, 9)
@@ -477,11 +508,14 @@ def phase_kernels(torch, K, cfg, rng):
                                             by=bby, lib=lib)
         check_gate_shapes(torch, K, dtype_name, rng)
 
-        # 2. verification
+        # 2. verification (bitwise equal by construction: no FMA contraction,
+        # the plain version's order of every product and sum)
         F, M = verification[1].shape[:2]
         out_k = K.verification_scores(*verification)
         out_p = K.verification_scores_plain(*verification)
         torch.cuda.synchronize()
+        check(all(same_bits(torch, a, b) for a, b in zip(out_k, out_p)),
+              "verification: homo, epi or base not bitwise equal to the plain version")
         errs = {name: assert_close(f"verification {name}", a, b, tol, floor=name == "epi")
                 for name, a, b in zip(("homo", "epi", "base"), out_k, out_p)}
         homo, epi, base = out_k
@@ -499,13 +533,17 @@ def phase_kernels(torch, K, cfg, rng):
                                 "verification_kernel")
         plain = time_ms(torch, lambda: K.verification_scores_plain(*verification))
         bms, bby = kernel_bound("verification_scores", (F, M), dtype_name)
-        log(f"verification  F={F} M={M}: max abs {ea:.3e} rel {er:.3e}; "
-            f"{int(dk.sum())} rejections, {int(short.sum())} short baselines "
+        log(f"verification  F={F} M={M}: homo, epi and base bitwise equal to the plain "
+            f"version; {int(dk.sum())} rejections, {int(short.sum())} short baselines "
             f"(decisions equal); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), "
-            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby})")
-        log(_per_output(errs))
+            f"plain {plain:.4f} ms, bound {bms:.6f} ms ({bby}); plan (threads, blocks) "
+            f"{K.verification_plan(F, M)}")
         rows["verification_scores"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
                                            by=bby, lib=None)
+        log_verification_call(torch, K, verification)
+        check_verification_shapes(torch, K, dtype_name, rng, cfg)
+        if dtype_name == "float32":
+            log_launch_floor(torch)
 
         # 3. P15 recurrence
         B = p15[1].shape[0]
@@ -661,6 +699,71 @@ def check_gate_shapes(torch, K, dtype_name, rng):
             + f"; kernel only {_fmt_ms(dev_ms)}")
 
 
+def check_verification_shapes(torch, K, dtype_name, rng, cfg):
+    """The verification kernel at VERIFY_SHAPES: homo, epi and base bitwise
+    equal to the plain version's, and a batched launch of VERIFY_BATCH
+    sequences bitwise equal to its single launches (each single launch
+    reads its sequence through a view at the sequence's offset) and to a
+    batched launch with K and K^-1 shared."""
+    dtype = getattr(torch, dtype_name)
+    for F, M in VERIFY_SHAPES:
+        draws = [verification_inputs(torch, dtype, rng, F, M, cfg) for _ in range(VERIFY_BATCH)]
+        stacked = [torch.stack([d[j] for d in draws]) for j in range(8)]
+        K.reset_launches()
+        out = torch.func.vmap(K.verification_scores)(*stacked)
+        # K and K^-1 shared by the sequences (stride 0), as on the batched loop
+        shared = torch.func.vmap(lambda *a: K.verification_scores(*a, *draws[0][6:]))(
+            *stacked[:6])
+        torch.cuda.synchronize()
+        check(K.LAUNCHES["verification_scores"] == 2,
+              "verification batched: more than one launch a batched call")
+        check(all(same_bits(torch, a, w) for a, w in zip(shared, out)),
+              f"verification F={F} M={M} batched: shared K and K^-1 change the scores")
+        for b in range(VERIFY_BATCH):
+            one = K.verification_scores(*(x[b] for x in stacked))
+            want = K.verification_scores_plain(*draws[b])
+            torch.cuda.synchronize()
+            check(all(same_bits(torch, a, w) for a, w in zip(one, want)),
+                  f"verification F={F} M={M}: not bitwise equal to the plain version")
+            check(all(same_bits(torch, o[b], w) for o, w in zip(out, one)),
+                  f"verification F={F} M={M} batched: sequence {b} differs from its single "
+                  f"launch")
+        dev_ms = kernel_only_ms(torch, lambda: K.verification_scores(*draws[0]),
+                                "verification_kernel")
+        log(f"verification  F={F} M={M}: homo, epi and base bitwise equal to the plain version "
+            f"over {VERIFY_BATCH} draws (single launches on views at each sequence's offset), "
+            f"the batched launch (B={VERIFY_BATCH}, K and K^-1 batched or shared) bitwise equal "
+            f"to the single ones; plan "
+            f"{K.verification_plan(F, M)}; kernel only {_fmt_ms(dev_ms)}")
+
+
+def log_verification_call(torch, K, args):
+    """Device time of every kernel a verification call launches, single and
+    batched (B = BATCH copies), beside that of a torch.cat of the call's
+    four constants (camR, camt, K, K^-1) into one (B, 30) array: the op a
+    launch that takes them by one pointer would add to each call."""
+    stacked = [torch.stack([x] * BATCH) for x in args]
+    res = []
+    for B, xs, call in ((1, args, lambda: K.verification_scores(*args)),
+                        (BATCH, stacked, lambda: torch.func.vmap(K.verification_scores)(*stacked))):
+        consts = [x.reshape(B, -1) for x in xs[4:]]
+        whole = kernel_only_ms(torch, call)
+        gather = kernel_only_ms(torch, lambda: torch.cat(consts, dim=1))
+        res.append(f"B={B}: whole call {_fmt_ms(whole)}, torch.cat of the constants "
+                   f"{_fmt_ms(gather)}")
+    log("verification  device time (every kernel launched): " + "; ".join(res))
+
+
+def log_launch_floor(torch):
+    """The launch floor: the device time (profiler) and the call time (CUDA
+    events) of a one-element fill on the card, the least any kernel's
+    launch costs."""
+    x = torch.empty(1, device=DEVICE)
+    dev_ms = kernel_only_ms(torch, lambda: x.fill_(1.0), "elementwise_kernel")
+    ms = time_ms(torch, lambda: x.fill_(1.0))
+    log(f"launch floor  one-element fill_: kernel only {_fmt_ms(dev_ms)}, call {ms:.4f} ms")
+
+
 def check_triage_shapes(torch, K, dtype_name, rng, cfg):
     """The triage kernel at TRIAGE_SHAPES (a ragged last block, M past one
     warp, M = 1, F and M below one block's plan): m, rho and ok bitwise
@@ -799,11 +902,13 @@ def launch1_form(torch, fn) -> str:
     from torch.profiler import ProfilerActivity, profile
 
     # the profiler now and then hands back a window without the device's
-    # kernel records (only the runtime's calls): such a window tells
-    # nothing, so it is taken again, up to three times
+    # kernel records (only the runtime's calls), or without its first one:
+    # the window holds two calls, and one that tells nothing is taken again,
+    # up to three times
     for _ in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
             fn()
             torch.cuda.synchronize()
         keys = [e.key for e in prof.key_averages()]
@@ -955,9 +1060,9 @@ def phase_kernels_batched(torch, K, cfg, rng):
             if name == "batched_gating_gamma":
                 check(torch.equal(out[0] <= crit, want[0] <= crit),
                       "gating batched: gate decisions differ from plain")
-            if name == "triage_refresh_fused":
+            if name in ("triage_refresh_fused", "verification_scores"):
                 check(all(same_bits(torch, o, w) for o, w in zip(out, want)),
-                      "triage batched: m, rho or ok not bitwise equal to the plain version")
+                      f"{name} batched: not bitwise equal to the plain version")
             ea, er = _worst(errs)
             ms = time_ms(torch, run)
             dev_ms = kernel_only_ms(torch, run, match)
@@ -1486,12 +1591,13 @@ def main(argv=None) -> int:
     log(f"== build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     build_log = K.BUILD_DIR / "build.log"
     if build_log.exists():
-        # registers of every kernel; for the triage and P15 kernels also the
-        # entry each line belongs to, its shared memory and spills
+        # registers of every kernel; for the verification, triage and P15
+        # kernels also the entry each line belongs to, its shared memory and
+        # spills
         detail = False
         for line in build_log.read_text().splitlines():
             if line.startswith("=="):
-                detail = line.split()[-1] in ("triage.cu", "p15_recurrence.cu")
+                detail = line.split()[-1] in ("verification.cu", "triage.cu", "p15_recurrence.cu")
             if (line.startswith("==") or "registers" in line
                     or (detail and ("Compiling entry" in line or "spill" in line))):
                 log("   " + line.strip())

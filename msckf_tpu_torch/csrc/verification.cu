@@ -9,22 +9,52 @@
 // t12 = R1^T (camt - t1), the same 1e-30 guard on the projected z (kept
 // because the slice's configuration selects this kernel, not the unguarded
 // XLA form), and the reference's literal comparison of H^-1 x2 against the
-// CURRENT keypoint.
+// CURRENT keypoint. The file is built without multiply-add contraction, and
+// every product and sum is taken in the plain version's order
+// (ops/kernels.py::verification_scores_plain), so the three scores are
+// bitwise equal to it.
 //
-// Design: a pure elementwise pass, one thread per pair, over a grid of
+// What bounds it on the H100: per pair it reads 14 values (R1, t1, kp1)
+// and writes 3: at the main path's 768 x 32 pairs ~1.7 MB in f32 (0.5 us at
+// 3.35 TB/s), at B = 32 sequences 53.6 MB (16 us). Without contraction a
+// pair is also ~440 FP32 instructions (FMUL, FADD), four IEEE divisions and
+// three IEEE square roots (cuobjdump counts ~840 SASS instructions in the
+// body, slow paths included): at B = 32 about as long on the FP32 pipes
+// (132 SMs x 4 schedulers, one warp instruction a cycle) as the bytes take.
+// A single call is the launch, one load round trip and one lane's chain at a
+// few warps an SM.
+//
+// Design: one lane a pair, 128 lanes a block (the plan,
+// ops/kernels.py::verification_plan), so the main path's 768 x 32 pairs
+// fill 192 blocks over the 132 SMs. Each lane loads its 16 values straight
+// from device memory (L1 merges a warp's strided loads into whole lines),
+// and the sequence's camera pose, K and K^-1 (30 values) itself, from four
+// pointers, each with its stride a sequence (0 where the sequences share
+// it, as K and K^-1 do on the batched loop): the launcher gathers nothing
+// into one array first. The constants' addresses are the same across a
+// warp, so each of those loads is one transaction, served by L1 after the
+// first warp, and they are in flight with the pair's own: no shared memory
+// and no barrier, so no warp waits for a copy of the constants (a block
+// copying them into shared memory behind a barrier measured slower). Each
+// lane writes its three scores, coalesced: a pair costs the fewest issued
+// instructions, and the warps an SM holds overlap each other's round trips
+// and chains. A block's pairs staged in shared memory by 16-byte cp.async
+// copies, each pair's chain split over three lanes (each recomputing R12),
+// and a per-warp cp.async ring were built, bitwise equal, and measured
+// slower at both sizes (PERF.md, section 6): the split adds instructions
+// to a pass that issue already bounds, and a wait on staged copies adds to
+// every round trip what direct loads overlap. The grid is
 // (pair blocks, B sequences): the batched form (the JAX custom_vmap rule's
 // batch grid axis, pallas_kernels.py:737-750) is blockIdx.y, a single call
 // is B = 1, and each sequence reads and writes at its own base offsets, so
-// a batched launch gives each sequence the bits of a single launch. A
-// block copies its sequence's current camera pose, K and K^-1 (30 values)
-// into shared memory, so every thread reads them as broadcast values; each
-// thread reads its 14 pair values and the track's keypoint and writes 3
-// scores. What bounds it on the H100: at F x M = 24,576 pairs it moves
-// ~1.7 MB (0.5 us at 3.35 TB/s) and does ~11 MFLOP (0.2 us at 67 TFLOP/s
-// f32) per sequence: bytes, and at this size mostly the launch itself.
+// a batched launch gives each sequence the bits of a single launch.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
+
+constexpr int kMaxThreads = 256;
 
 // (3x3) @ (3x3), row-major, with the summation order of the TPU kernel's
 // plane helpers (k = 0, 1, 2)
@@ -46,14 +76,14 @@ __device__ __forceinline__ void mv(const T* A, const T* x, T* out) {
 }
 
 template <typename T>
-__global__ void verification_kernel(const T* __restrict__ R1, const T* __restrict__ t1,
-                                    const T* __restrict__ kp1, const T* __restrict__ kp2,
-                                    const T* __restrict__ consts, T* __restrict__ homo,
-                                    T* __restrict__ epi, T* __restrict__ base, int F, int M) {
-  __shared__ T C[30];
+__global__ void __launch_bounds__(kMaxThreads)
+    verification_kernel(const T* __restrict__ R1, const T* __restrict__ t1,
+                        const T* __restrict__ kp1, const T* __restrict__ kp2,
+                        const T* __restrict__ camR, const T* __restrict__ camt,
+                        const T* __restrict__ K, const T* __restrict__ Kinv, int sR, int st,
+                        int sK, int sKi, T* __restrict__ homo, T* __restrict__ epi,
+                        T* __restrict__ base, int F, int M) {
   const size_t sq = blockIdx.y;  // the sequence of a batched launch
-  if (threadIdx.x < 30) C[threadIdx.x] = consts[sq * 30 + threadIdx.x];
-  __syncthreads();
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= F * M) return;
   const size_t pairs = (size_t)F * M;
@@ -65,10 +95,6 @@ __global__ void verification_kernel(const T* __restrict__ R1, const T* __restric
   epi += sq * pairs;
   base += sq * pairs;
   const int f = idx / M;
-  const T* camR = C;
-  const T* camt = C + 9;
-  const T* K = C + 12;
-  const T* Ki = C + 21;
 
   T R[9], t[3];
 #pragma unroll
@@ -77,6 +103,21 @@ __global__ void verification_kernel(const T* __restrict__ R1, const T* __restric
   for (int i = 0; i < 3; ++i) t[i] = t1[(size_t)idx * 3 + i];
   const T x1 = kp1[(size_t)idx * 2], y1 = kp1[(size_t)idx * 2 + 1];
   const T x2 = kp2[(size_t)f * 2], y2 = kp2[(size_t)f * 2 + 1];
+  // the sequence's camR | camt | K | K^-1: one address across the warp, so
+  // one transaction a load
+  T C[30];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) C[i] = __ldg(camR + sq * sR + i);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) C[9 + i] = __ldg(camt + sq * st + i);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) C[12 + i] = __ldg(K + sq * sK + i);
+#pragma unroll
+  for (int i = 0; i < 9; ++i) C[21 + i] = __ldg(Kinv + sq * sKi + i);
+  const T* cR = C;
+  const T* ct = C + 9;
+  const T* Kc = C + 12;
+  const T* Ki = C + 21;
 
   // T_C1_C2 = T1^-1 T2: R12 = R1^T camR, t12 = R1^T (camt - t1)
   T R12[9];
@@ -84,24 +125,24 @@ __global__ void verification_kernel(const T* __restrict__ R1, const T* __restric
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
-      R12[i * 3 + j] = R[0 * 3 + i] * camR[0 * 3 + j] + R[1 * 3 + i] * camR[1 * 3 + j] +
-                       R[2 * 3 + i] * camR[2 * 3 + j];
+      R12[i * 3 + j] = R[0 * 3 + i] * cR[0 * 3 + j] + R[1 * 3 + i] * cR[1 * 3 + j] +
+                       R[2 * 3 + i] * cR[2 * 3 + j];
   T d[3], t12[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) d[i] = camt[i] - t[i];
+  for (int i = 0; i < 3; ++i) d[i] = ct[i] - t[i];
 #pragma unroll
   for (int i = 0; i < 3; ++i) t12[i] = R[0 * 3 + i] * d[0] + R[1 * 3 + i] * d[1] + R[2 * 3 + i] * d[2];
   base[idx] = sqrt_t(t12[0] * t12[0] + t12[1] * t12[1] + t12[2] * t12[2]);
 
   // homography branch: H = K R12 K^-1, H^-1 = K R12^T K^-1
   T KR[9], H[9], R12T[9], Hinv[9];
-  mm(K, R12, KR);
+  mm(Kc, R12, KR);
   mm(KR, Ki, H);
 #pragma unroll
   for (int i = 0; i < 3; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) R12T[i * 3 + j] = R12[j * 3 + i];
-  mm(K, R12T, KR);
+  mm(Kc, R12T, KR);
   mm(KR, Ki, Hinv);
   const T x2h[3] = {x2, y2, T(1)};
   const T x1h[3] = {x1, y1, T(1)};
@@ -129,35 +170,46 @@ __global__ void verification_kernel(const T* __restrict__ R1, const T* __restric
 }
 
 template <typename T>
-int launch(const void* R1, const void* t1, const void* kp1, const void* kp2,
-           const void* consts, void* homo, void* epi, void* base, int F, int M, int B,
+int launch(const void* R1, const void* t1, const void* kp1, const void* kp2, const void* camR,
+           const void* camt, const void* K, const void* Kinv, int sR, int st, int sK, int sKi,
+           void* homo, void* epi, void* base, int F, int M, int B, int threads,
            cudaStream_t stream) {
-  if (F < 1 || M < 1 || B < 1 || B > 65535) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
+  // the plan (ops/kernels.py::verification_plan): whole warps, up to
+  // kMaxThreads a block; a constant's stride is its size, or 0 where the
+  // sequences share it
+  if (F < 1 || M < 1 || B < 1 || B > 65535 || (long long)F * M > INT_MAX - kMaxThreads ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || (sR != 0 && sR != 9) ||
+      (st != 0 && st != 3) || (sK != 0 && sK != 9) || (sKi != 0 && sKi != 9))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((F * M + threads - 1) / threads, B);
   verification_kernel<T><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(R1), static_cast<const T*>(t1), static_cast<const T*>(kp1),
-      static_cast<const T*>(kp2), static_cast<const T*>(consts), static_cast<T*>(homo),
-      static_cast<T*>(epi), static_cast<T*>(base), F, M);
+      static_cast<const T*>(kp2), static_cast<const T*>(camR), static_cast<const T*>(camt),
+      static_cast<const T*>(K), static_cast<const T*>(Kinv), sR, st, sK, sKi,
+      static_cast<T*>(homo), static_cast<T*>(epi), static_cast<T*>(base), F, M);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// consts: (B, 30) = camR (9) | camt (3) | K (9) | K^-1 (9) per sequence;
-// every other array carries a leading axis of B sequences
+// R1 (B, F, M, 3, 3), t1 (B, F, M, 3), kp1 (B, F, M, 2), kp2 (B, F, 2);
+// camR, K and Kinv (B, 3, 3) and camt (B, 3) with strides sR, sK, sKi = 9
+// and st = 3, or one for all sequences with stride 0; homo, epi and base
+// (B, F, M). threads is the plan's threads (pairs) a block.
 MSCKF_EXPORT int msckf_verification_f32(const void* R1, const void* t1, const void* kp1,
-                                        const void* kp2, const void* consts, void* homo,
-                                        void* epi, void* base, int F, int M, int B,
-                                        void* stream) {
-  return launch<float>(R1, t1, kp1, kp2, consts, homo, epi, base, F, M, B,
-                       static_cast<cudaStream_t>(stream));
+                                        const void* kp2, const void* camR, const void* camt,
+                                        const void* K, const void* Kinv, int sR, int st,
+                                        int sK, int sKi, void* homo, void* epi, void* base,
+                                        int F, int M, int B, int threads, void* stream) {
+  return launch<float>(R1, t1, kp1, kp2, camR, camt, K, Kinv, sR, st, sK, sKi, homo, epi, base,
+                       F, M, B, threads, static_cast<cudaStream_t>(stream));
 }
 
 MSCKF_EXPORT int msckf_verification_f64(const void* R1, const void* t1, const void* kp1,
-                                        const void* kp2, const void* consts, void* homo,
-                                        void* epi, void* base, int F, int M, int B,
-                                        void* stream) {
-  return launch<double>(R1, t1, kp1, kp2, consts, homo, epi, base, F, M, B,
-                        static_cast<cudaStream_t>(stream));
+                                        const void* kp2, const void* camR, const void* camt,
+                                        const void* K, const void* Kinv, int sR, int st,
+                                        int sK, int sKi, void* homo, void* epi, void* base,
+                                        int F, int M, int B, int threads, void* stream) {
+  return launch<double>(R1, t1, kp1, kp2, camR, camt, K, Kinv, sR, st, sK, sKi, homo, epi,
+                        base, F, M, B, threads, static_cast<cudaStream_t>(stream));
 }

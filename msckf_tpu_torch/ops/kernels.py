@@ -140,9 +140,9 @@ _SIGNATURES = {
     # S, r, gamma, scratch (or None), U, n, stream (a batch of sequences
     # flattens into U)
     "msckf_gating": (_P, _P, _P, _P, _I, _I, _P),
-    # R1, t1, kp1, kp2, consts(camR 9 | camt 3 | K 9 | Kinv 9), homo, epi, base, F, M,
-    # B, stream
-    "msckf_verification": (_P,) * 8 + (_I, _I, _I, _P),
+    # R1, t1, kp1, kp2, camR, camt, K, Kinv, their strides a sequence (0 where
+    # shared), homo, epi, base, F, M, B, threads a block, stream
+    "msckf_verification": (_P,) * 8 + (_I,) * 4 + (_P,) * 3 + (_I,) * 4 + (_P,),
     # P0, Phi, Qd, P, Phi_acc, sig, nt, B, ticks per chunk, shared bytes, stream
     "msckf_p15_recurrence": (_P,) * 6 + (_I,) * 4 + (_P,),
     # R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc, g,
@@ -446,30 +446,53 @@ def verification_scores_plain(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     return homo, epi, base
 
 
+# the per-call constants of the verification kernel and their shapes for one
+# sequence
+_VERIFY_CONSTS = (("camR", (3, 3)), ("camt", (3,)), ("K", (3, 3)), ("Kinv", (3, 3)))
+
+
 def _verification_check(R1, t1, kp1, kp2, camR, camt, K, Kinv):
+    """The pair arrays with a leading axis of B sequences; each constant
+    with the same axis, or without it when the sequences share it."""
     dt = _float_dtype(t1)
     B, F, M = t1.shape[:3]
     dev = t1.device
     for name, x, shape in (
         ("R1", R1, (B, F, M, 3, 3)), ("t1", t1, (B, F, M, 3)), ("kp1", kp1, (B, F, M, 2)),
-        ("kp2", kp2, (B, F, 2)), ("camR", camR, (B, 3, 3)), ("camt", camt, (B, 3)),
-        ("K", K, (B, 3, 3)), ("Kinv", Kinv, (B, 3, 3)),
+        ("kp2", kp2, (B, F, 2)),
     ):
         _check(x, name, shape, dt, dev)
+    for (name, shape), x in zip(_VERIFY_CONSTS, (camR, camt, K, Kinv)):
+        _check(x, name, shape if x.dim() == len(shape) else (B, *shape), dt, dev)
     return dt, B, F, M
+
+
+def verification_plan(F: int, M: int) -> tuple[int, int]:
+    """(threads a block, blocks a sequence) of the verification kernel for
+    F x M pairs: one lane a pair, 128 lanes a block, the last block masked;
+    a batched launch repeats the grid over its B sequences. The plan decides
+    where a pair is computed, never its arithmetic. Raises ValueError for F
+    or M < 1."""
+    if F < 1 or M < 1:
+        raise ValueError(f"verification kernel takes F and M >= 1, got F={F}, M={M}")
+    threads = 128
+    return threads, -(-F * M // threads)
 
 
 def _verification_launch(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     dt, B, F, M = _verification_check(R1, t1, kp1, kp2, camR, camt, K, Kinv)
     dev = t1.device
-    consts = torch.cat([camR.reshape(B, 9), camt, K.reshape(B, 9), Kinv.reshape(B, 9)], dim=1)
     homo = torch.empty((B, F, M), dtype=dt, device=dev)
     epi = torch.empty_like(homo)
     base = torch.empty_like(homo)
     if B * F * M == 0:
         return homo, epi, base
-    _launch("msckf_verification", dt,
-            *(t.data_ptr() for t in (R1, t1, kp1, kp2, consts, homo, epi, base)), F, M, B)
+    consts = (camR, camt, K, Kinv)
+    strides = (x.stride(0) if x.dim() > len(shape) else 0
+               for (_, shape), x in zip(_VERIFY_CONSTS, consts))
+    _launch("msckf_verification", dt, *(t.data_ptr() for t in (R1, t1, kp1, kp2, *consts)),
+            *strides, *(t.data_ptr() for t in (homo, epi, base)), F, M, B,
+            verification_plan(F, M)[0])
     LAUNCHES["verification_scores"] += 1
     return homo, epi, base
 
@@ -487,8 +510,18 @@ def verification_scores(R1: torch.Tensor, t1: torch.Tensor, kp1: torch.Tensor,
 
 @verification_scores.register_vmap
 def _verification_vmap(info, in_dims, *args):
-    return _batched_call(_verification_launch, _verification_check,
-                         verification_scores_plain, info, in_dims, args, 8)
+    """One launch for the batch. The pair arrays get the batch axis first; a
+    constant that the sequences share (K and K^-1 on the batched loop) stays
+    as it is and reaches the kernel with stride 0, not copied B times."""
+    pairs = _batch_first(info, in_dims[:4], *args[:4])
+    consts = [x.contiguous() if d is None else x.movedim(d, 0).contiguous()
+              for x, d in zip(args[4:], in_dims[4:])]
+    if pairs[0].device.type == "cpu":
+        _verification_check(*pairs, *consts)
+        out = verification_scores_plain(*pairs, *consts)
+    else:
+        out = _verification_launch(*pairs, *consts)
+    return tuple(out), (0, 0, 0)
 
 
 # --------------------------------------------------------------------------

@@ -125,6 +125,56 @@ def test_verification_plain_keeps_the_z_guard():
         _close(g.numpy(), np.asarray(w), floor=name == "epi")
 
 
+@pytest.mark.parametrize("F,M", [(768, 32), (13, 1), (5, 7), (37, 40), (769, 32), (1, 1)])
+def test_verification_plan_covers_every_pair_once(F, M):
+    """Blocks of whole warps, one lane a pair: every pair of a sequence in
+    exactly one block, only the last block ragged."""
+    threads, blocks = K.verification_plan(F, M)
+    assert threads % 32 == 0 and 32 <= threads <= 256
+    seen = []
+    for b in range(blocks):
+        p0 = b * threads
+        n = min(threads, F * M - p0)
+        assert n == threads or b == blocks - 1
+        seen += range(p0, p0 + n)
+    assert seen == list(range(F * M))
+    if (F, M) == (768, 32):  # the main path: 192 blocks over the 132 SMs
+        assert (threads, blocks) == (128, 192)
+
+
+@pytest.mark.parametrize("F,M", [(0, 4), (4, 0)])
+def test_verification_plan_rejects_empty_shapes(F, M):
+    with pytest.raises(ValueError, match="F and M"):
+        K.verification_plan(F, M)
+
+
+def test_verification_launcher_passes_its_plan(monkeypatch):
+    """The launcher hands the C entry point the eight inputs as they are
+    (the camera pose, K and K^-1 each by its own pointer, no concatenated
+    copy), each constant's stride a sequence (0 where the sequences share
+    it), the three outputs with the batch axis, and the plan of its shapes.
+    The launch is recorded, not made: the tests run on the CPU."""
+    calls = []
+    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append((name, dt, args)))
+    monkeypatch.setattr(torch, "cat", None)
+    rng = np.random.default_rng(3)
+    for B, F, M, dtype, shared in ((1, 37, 40, torch.float64, False),
+                                   (3, 5, 7, torch.float32, False),
+                                   (3, 13, 1, torch.float32, True)):
+        args = [_t(np.stack([a] * B)).to(dtype) for a in _verification_inputs(rng, F, M, 0.2)]
+        if shared:  # K and K^-1 shared by the sequences, as on the batched loop
+            args[6], args[7] = args[6][0], args[7][0]
+        out = K._verification_launch(*args)
+        assert all(o.shape == (B, F, M) and o.dtype == dtype for o in out)
+        name, dt, a = calls[-1]
+        assert name == "msckf_verification" and dt == dtype
+        assert a[:8] == tuple(x.data_ptr() for x in args)
+        assert a[8:12] == ((9, 3, 0, 0) if shared else (9, 3, 9, 9))
+        assert a[12:15] == tuple(x.data_ptr() for x in out)
+        assert a[15:] == (F, M, B, K.verification_plan(F, M)[0])
+    assert len(calls) == 3
+
+
 @pytest.mark.parametrize("B", [1, 2, 9, 64])
 def test_p15_plain_matches_pallas(B):
     rng = np.random.default_rng(B)
