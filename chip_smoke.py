@@ -18,7 +18,10 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               fill). The verification also at (F, M) = (13, 1), (5, 7),
               (37, 40) and (769, 32), and its whole call's device time
               beside that of a torch.cat of its four constants into one
-              array. The triage also at (F, M) = (768, 32),
+              array. The propagation block also from the first step, with
+              a padding tick, and at nt = 9 with two padding ticks; batched
+              also with qc and gravity shared (stride 0), bitwise equal to
+              its single launches. The triage also at (F, M) = (768, 32),
               (769, 40), (13, 1) and (5, 7), the P15 recurrence at nt = 3,
               9 and 64, each also batched at B = 4 bitwise against its
               single launches. The gate also at
@@ -426,7 +429,9 @@ def kernel_inputs(torch, dtype, rng, cfg):
         )
 
     propagate = prop_inputs(1, 10, 0)
-    propagate_checks = [prop_inputs(1, 0, 0), prop_inputs(2, 5, 1)]
+    # the first step (identity null state), a padding tick, and nt = 9 with
+    # two padding ticks: the kernel takes any nt
+    propagate_checks = [prop_inputs(1, 0, 0), prop_inputs(2, 5, 1), prop_inputs(9, 7, 2)]
 
     triage = triage_inputs(torch, dtype, rng, F, M, cfg)
 
@@ -565,8 +570,8 @@ def phase_kernels(torch, K, cfg, rng):
                                             by=bby, lib=None)
         check_p15_shapes(torch, K, dtype_name, rng)
 
-        # 4. propagation block (B = 1 as on the path; the first-step null
-        # state and a padding tick are checked too)
+        # 4. propagation block (nt = 1 as on the path; the first-step null
+        # state, a padding tick and nt = 9 are checked too)
         names = ("R", "p", "v", "last_ts", "prop_count", "P15", "Phi_acc",
                  "outR", "outp", "outv", "outsig")
         errs = {}
@@ -588,9 +593,9 @@ def phase_kernels(torch, K, cfg, rng):
                                 "propagate_kernel")
         plain = time_ms(torch, lambda: K.propagate_block_fused_plain(*propagate))
         bms, bby = kernel_bound("propagate_block_fused", (Bp,), dtype_name)
-        log(f"propagate     B={Bp}: max abs {ea:.3e} rel {er:.3e} (also first step, padding "
-            f"tick); kernel {ms:.4f} ms (kernel only {_fmt_ms(dev_ms)}), plain {plain:.4f} ms, "
-            f"bound {bms:.8f} ms ({bby})")
+        log(f"propagate     nt={Bp}: max abs {ea:.3e} rel {er:.3e} (also first step, padding "
+            f"tick, nt=9 with two padding ticks); kernel {ms:.4f} ms (kernel only "
+            f"{_fmt_ms(dev_ms)}), plain {plain:.4f} ms, bound {bms:.8f} ms ({bby})")
         log(_per_output(errs))
         rows["propagate_block_fused"] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain, bound=bms,
                                              by=bby, lib=None)
@@ -968,6 +973,32 @@ def check_update_ragged(torch, K, dtype_name, rng):
             f"launch (B={RAGGED_BATCH}) bitwise equal to the single ones")
 
 
+def check_propagate_shared(torch, K, tensors, stacked_out):
+    """The propagation block's batched launch as the batched loop makes it:
+    qc and gravity shared by the sequences (not mapped by the vmap), so
+    they reach the kernel with stride 0. One launch, bitwise equal to the
+    launch with them stacked and to each sequence's single launch."""
+    qc, g = tensors[11][0], tensors[12][0]
+    check(all(torch.equal(tensors[11][b], qc) and torch.equal(tensors[12][b], g)
+              for b in range(tensors[7].shape[0])),
+          "propagate shared: the draws do not share qc and gravity")
+    in_dims = (0,) * 11 + (None, None, 0)
+    K.reset_launches()
+    out = torch.func.vmap(K.propagate_block_fused, in_dims=in_dims)(
+        *tensors[:11], qc, g, tensors[13])
+    torch.cuda.synchronize()
+    check(K.LAUNCHES["propagate_block_fused"] == 1,
+          f"propagate shared: {K.LAUNCHES['propagate_block_fused']} launches for one call")
+    check(all(same_bits(torch, o, w) for o, w in zip(out, stacked_out)),
+          "propagate shared: differs from the launch with qc and gravity stacked")
+    for b in range(tensors[7].shape[0]):
+        one = K.propagate_block_fused(*(x[b] for x in tensors[:11]), qc, g, tensors[13][b])
+        check(all(same_bits(torch, o[b], w) for o, w in zip(out, one)),
+              f"propagate shared: sequence {b} differs from its single launch")
+    log(f"propagate_block_fused  batched B={tensors[7].shape[0]} with qc and gravity shared "
+        f"(stride 0): one launch, bitwise equal to the stacked launch and to its single ones")
+
+
 def same_bits(torch, a, b) -> bool:
     """Bitwise equality, NaNs included."""
     if a.dtype.is_floating_point:
@@ -1088,6 +1119,8 @@ def phase_kernels_batched(torch, K, cfg, rng):
                 + f"bound {bms:.6f} ms ({bby})")
             rows[name] = dict(err=ea, ms=ms, dev=dev_ms, plain=plain_ms, bound=bms, by=bby,
                               lib=lib, B=Bn, matmul=mm)
+            if name == "propagate_block_fused":
+                check_propagate_shared(torch, K, tensors, out)
         if dtype_name == "float32":
             rows32 = dict(rows)
     return rows32
@@ -1591,13 +1624,14 @@ def main(argv=None) -> int:
     log(f"== build: {lib.name} in {time.perf_counter() - t0:.1f} s")
     build_log = K.BUILD_DIR / "build.log"
     if build_log.exists():
-        # registers of every kernel; for the verification, triage and P15
-        # kernels also the entry each line belongs to, its shared memory and
-        # spills
+        # registers of every kernel; for the verification, triage, P15 and
+        # propagation kernels also the entry each line belongs to, its shared
+        # memory and spills
         detail = False
         for line in build_log.read_text().splitlines():
             if line.startswith("=="):
-                detail = line.split()[-1] in ("verification.cu", "triage.cu", "p15_recurrence.cu")
+                detail = line.split()[-1] in ("verification.cu", "triage.cu", "p15_recurrence.cu",
+                                              "propagate_block.cu")
             if (line.startswith("==") or "registers" in line
                     or (detail and ("Compiling entry" in line or "spill" in line))):
                 log("   " + line.strip())

@@ -147,8 +147,8 @@ _SIGNATURES = {
     "msckf_p15_recurrence": (_P,) * 6 + (_I,) * 4 + (_P,),
     # R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc, g,
     # P15, | R, p, v, last_ts, prop_count, P15, Phi_acc, outR, outp, outv,
-    # outsig, nt, B, stream
-    "msckf_propagate_block": (_P,) * 25 + (_I, _I, _P),
+    # outsig, qc's and g's strides a sequence (0 where shared), nt, B, stream
+    "msckf_propagate_block": (_P,) * 25 + (_I,) * 4 + (_P,),
     # base, dir, w, Ra, ta, K, Kinv, eps, width, height, m, rho, ok, F, M, B,
     # tracks per block, tracks and observations per pass, threads, shared
     # bytes, stream
@@ -233,6 +233,14 @@ def _batch_first(info, in_dims, *args):
             x = x.contiguous()
         out.append(x)
     return out
+
+
+def _shared_or_batch_first(in_dims, *args):
+    """Constants that the sequences may share: an unmapped one stays as it
+    is (its kernel reads it with stride 0), a mapped one gets the batch axis
+    first; both contiguous."""
+    return [x.contiguous() if d is None else x.movedim(d, 0).contiguous()
+            for x, d in zip(args, in_dims)]
 
 
 def _single_call(launch, check, plain, tensors, scalars=()):
@@ -514,8 +522,7 @@ def _verification_vmap(info, in_dims, *args):
     constant that the sequences share (K and K^-1 on the batched loop) stays
     as it is and reaches the kernel with stride 0, not copied B times."""
     pairs = _batch_first(info, in_dims[:4], *args[:4])
-    consts = [x.contiguous() if d is None else x.movedim(d, 0).contiguous()
-              for x, d in zip(args[4:], in_dims[4:])]
+    consts = _shared_or_batch_first(in_dims[4:], *args[4:])
     if pairs[0].device.type == "cpu":
         _verification_check(*pairs, *consts)
         out = verification_scores_plain(*pairs, *consts)
@@ -740,16 +747,20 @@ def propagate_block_fused_plain(R0, p0, v0, bg, ba, last_ts, prop_count,
 
 def _propagate_check(R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, valid, qc,
                      gravity, P15):
+    """The per-sequence arrays with a leading axis of B sequences; qc and
+    gravity with the same axis, or without it when the sequences share
+    them."""
     dt = _float_dtype(R0)
     dev = R0.device
     B, nt = ts.shape
     for name, x, shape in (
         ("R0", R0, (B, 3, 3)), ("p0", p0, (B, 3)), ("v0", v0, (B, 3)), ("bg", bg, (B, 3)),
         ("ba", ba, (B, 3)), ("last_ts", last_ts, (B,)), ("ts", ts, (B, nt)),
-        ("gyro", gyro, (B, nt, 3)), ("acc", acc, (B, nt, 3)), ("qc", qc, (B, 12)),
-        ("gravity", gravity, (B, 3)), ("P15", P15, (B, 15, 15)),
+        ("gyro", gyro, (B, nt, 3)), ("acc", acc, (B, nt, 3)), ("P15", P15, (B, 15, 15)),
     ):
         _check(x, name, shape, dt, dev)
+    for name, x, n in (("qc", qc, 12), ("gravity", gravity, 3)):
+        _check(x, name, (n,) if x.dim() == 1 else (B, n), dt, dev)
     _check(prop_count, "prop_count", (B,), torch.int64, dev)
     _check(valid, "valid", (B, nt), torch.bool, dev)
     return dt, B, nt
@@ -767,7 +778,9 @@ def _propagate_launch(R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, va
     outs = (empty(3, 3), empty(3), empty(3), empty(), empty(dtype=torch.int64),
             empty(15, 15), empty(15, 15), empty(nt, 3, 3), empty(nt, 3), empty(nt, 3),
             empty(nt, 6))
-    _launch("msckf_propagate_block", dt, *(t.data_ptr() for t in args + outs), nt, B)
+    strides = (x.stride(0) if x.dim() == 2 else 0 for x in (qc, gravity))
+    _launch("msckf_propagate_block", dt, *(t.data_ptr() for t in args + outs), *strides, nt,
+            B)
     LAUNCHES["propagate_block_fused"] += 1
     return outs
 
@@ -793,8 +806,18 @@ def propagate_block_fused(
 
 @propagate_block_fused.register_vmap
 def _propagate_vmap(info, in_dims, *args):
-    return _batched_call(_propagate_launch, _propagate_check, propagate_block_fused_plain,
-                         info, in_dims, args, 14)
+    """One launch for the batch. The per-sequence arrays get the batch axis
+    first; qc and gravity, when the sequences share them (the batched loop's
+    constants), stay as they are and reach the kernel with stride 0, not
+    copied B times."""
+    seq = _batch_first(info, in_dims[:11] + in_dims[13:], *args[:11], args[13])
+    args = (*seq[:11], *_shared_or_batch_first(in_dims[11:13], *args[11:13]), seq[11])
+    if args[0].device.type == "cpu":
+        _propagate_check(*args)
+        out = propagate_block_fused_plain(*args)
+    else:
+        out = _propagate_launch(*args)
+    return tuple(out), (0,) * len(out)
 
 
 # --------------------------------------------------------------------------

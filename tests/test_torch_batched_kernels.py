@@ -184,6 +184,21 @@ def test_propagate_block_vmap_matches_pallas(monkeypatch):
             _close(g[b].numpy(), o.numpy())
 
 
+def test_propagate_block_vmap_shares_constants():
+    """qc and gravity left unmapped (in_dims None), as the batched loop's
+    constants are, give bitwise the call with them stacked."""
+    rng = np.random.default_rng(8)
+    tb = [torch.as_tensor(x) for x in _stack(lambda: list(_prop_inputs(rng, 2, 5, 1).values()))]
+    qc, g = tb[11][0], tb[12][0]
+    tb[11], tb[12] = qc.expand(B, 12).clone(), g.expand(B, 3).clone()
+    stacked = torch.func.vmap(K.propagate_block_fused)(*tb)
+    in_dims = (0,) * 11 + (None, None, 0)
+    shared = torch.func.vmap(K.propagate_block_fused, in_dims=in_dims)(
+        *tb[:11], qc, g, tb[13])
+    for s, w in zip(shared, stacked):
+        assert torch.equal(s, w)
+
+
 def test_vmap_rule_broadcasts_unbatched_arguments():
     """An argument the vmap does not map (the shared P of the update terms
     here) is broadcast to the batch, as the JAX rule's

@@ -231,6 +231,51 @@ def test_propagate_block_plain_matches_pallas(B, prop_count, pad):
     assert int(gpc) == int(meta[0, 1]) == prop_count + B - pad
 
 
+def _prop_tensors(rng, B, nt, dtype=torch.float64):
+    """B draws of _prop_inputs stacked per argument, as torch tensors."""
+    draws = [_prop_inputs(rng, nt, 5, 0) for _ in range(B)]
+    out = [torch.as_tensor(np.stack([np.asarray(d[k]) for d in draws])) for k in draws[0]]
+    return [x.to(dtype) if x.dtype.is_floating_point else x for x in out]
+
+
+def test_propagate_check_takes_shared_or_stacked_constants():
+    """qc and gravity come with the batch axis, or without it when the
+    sequences share them; any other shape is refused."""
+    args = _prop_tensors(np.random.default_rng(11), 3, 2)
+    assert K._propagate_check(*args) == (torch.float64, 3, 2)
+    shared = list(args)
+    shared[11], shared[12] = args[11][0], args[12][0]
+    assert K._propagate_check(*shared) == (torch.float64, 3, 2)
+    bad_qc = list(args)
+    bad_qc[11] = args[11][:, :11]
+    with pytest.raises(ValueError, match="qc has shape"):
+        K._propagate_check(*bad_qc)
+    bad_g = list(args)
+    bad_g[12] = args[12][:2]
+    with pytest.raises(ValueError, match="gravity has shape"):
+        K._propagate_check(*bad_g)
+
+
+def test_propagate_launcher_passes_constant_strides(monkeypatch):
+    """The launcher hands the C entry point qc's and gravity's strides a
+    sequence: 12 and 3 when they come stacked, 0 when the sequences share
+    them. The launch is recorded, not made: the tests run on the CPU."""
+    calls = []
+    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append((name, dt, args)))
+    args = _prop_tensors(np.random.default_rng(12), 3, 2, torch.float32)
+    for shared in (False, True):
+        a = list(args)
+        if shared:
+            a[11], a[12] = args[11][0], args[12][0]
+        out = K._propagate_launch(*a)
+        assert out[7].shape == (3, 2, 3, 3) and out[5].dtype == torch.float32
+        name, dt, got = calls[-1]
+        assert name == "msckf_propagate_block" and dt == torch.float32
+        assert got[:14] == tuple(x.data_ptr() for x in a)
+        assert got[14:25] == tuple(x.data_ptr() for x in out)
+        assert got[25:] == ((0, 0) if shared else (12, 3)) + (2, 3)
+
+
 def _triage_inputs(rng, F, M):
     """Consistent geometry as in tests/test_triage_fused.py: each track's
     point is seen along noisy lines from M camera centres, the first of
