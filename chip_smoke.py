@@ -65,6 +65,22 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               fallback to a per-sequence loop, no host sync; aggregate
               frames/s in turns with the single default loop; profiles
               of the default and the fused batched loop.
+9. solvers  — the gain solves on the card at D = 207 in float32 and float64
+              (the unbatched gain_solve the LU's bits; under vmap at B = 32
+              within 1e-5 of float64, and the batched LU's bits for a batch
+              holding one hard system; one Newton-Schulz step the LU's bits;
+              the Cholesky solve finite at cond(P) = 1e8); CUDA-event times
+              of the correction chain (lu, ns, chol, single and at B = 32,
+              float32 and float64 chains) and of the solves alone; the whole
+              circle with gain_solver="ns", "chol" and triangulation="gn",
+              and 400 ticks with use_pallas=False, each with error,
+              overflow, launch and sync checks (no triage kernel under gn,
+              no kernel at all with use_pallas=False); their frames/s in
+              turns with the default loop (two runs each); the batched
+              float32 chain (B = 32, 400 ticks, batched_solver "ns" and
+              "lu": overflow, launches, 0 host syncs, the position gap per
+              sequence); and 600-tick float64 card-vs-CPU parity of the
+              four settings.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -149,7 +165,8 @@ VERIFY_BATCH = 4
 P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
-PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched")
+PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
+          "solvers")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 DEVICE = "cuda"
 
@@ -1152,9 +1169,15 @@ def _flat(pre, fr, name):
 
 
 def path_kernels(cfg) -> set:
-    """The kernels a configuration's frame loop launches."""
-    names = {"verification_scores", "propagate_block_fused", "p15_recurrence_fused"}
-    if cfg.use_pallas_triage:
+    """The kernels a configuration's frame loop launches: none with
+    ``use_pallas=False``, the master switch; no triage kernel under
+    ``triangulation="gn"``."""
+    if not cfg.use_pallas:
+        return set()
+    names = {"verification_scores"}
+    if cfg.use_pallas_propagation:
+        names |= {"propagate_block_fused", "p15_recurrence_fused"}
+    if cfg.use_pallas_triage and cfg.triangulation != "gn":
         names.add("triage_refresh_fused")
     if cfg.update_kernel == "fused":
         names.add("update_terms_fused")
@@ -1163,7 +1186,11 @@ def path_kernels(cfg) -> set:
     return names
 
 
-def _block_kind(B: int) -> str:
+def _block_kind(B: int, cfg) -> str:
+    """The propagation kernel of a block of B ticks ("scan": none; every
+    block is a scan when the configuration's propagation kernels are off)."""
+    if "propagate_block_fused" not in path_kernels(cfg):
+        return "scan"
     return "propagate_block_fused" if B <= 2 else ("p15_recurrence_fused" if B <= 64 else "scan")
 
 
@@ -1174,10 +1201,11 @@ def predicted_launches(K, cfg, stats, C: int, B: int, Bp: int) -> dict:
     once per camera step and once per prune (the prune triages whether or
     not it then updates); the update kernel once per update."""
     pred = dict.fromkeys(K.LAUNCHES, 0)
-    for kind in (_block_kind(Bp), *[_block_kind(1), _block_kind(B - 1)] * C):
+    for kind in (_block_kind(Bp, cfg), *[_block_kind(1, cfg), _block_kind(B - 1, cfg)] * C):
         if kind != "scan":
             pred[kind] += 1
-    pred["verification_scores"] = stats.camera_steps
+    if "verification_scores" in path_kernels(cfg):
+        pred["verification_scores"] = stats.camera_steps
     updates = stats.camera_steps + stats.prune_updates
     if "triage_refresh_fused" in path_kernels(cfg):
         pred["triage_refresh_fused"] = stats.camera_steps + stats.prunes
@@ -1260,7 +1288,9 @@ def drive(torch, pkg, K, seq, cfg, label, max_ticks=None):
         check(v == predicted[k], f"{label}: {k} launched {v} times, loop predicts {predicted[k]}")
     log(f"{label}: {C} frames x {B} ticks (+{Bp}-tick prefix), {cfg.dtype} filter, "
         f"{cfg.correction_dtype} island, use_pallas_triage={cfg.use_pallas_triage}, "
-        f"update_kernel={cfg.update_kernel!r}, f_max={cfg.f_max} u_max={cfg.u_max} "
+        f"update_kernel={cfg.update_kernel!r}, gain_solver={cfg.gain_solver!r}, "
+        f"triangulation={cfg.triangulation!r}, use_pallas={cfg.use_pallas}, "
+        f"f_max={cfg.f_max} u_max={cfg.u_max} "
         f"k_max={cfg.k_max} desc_dim={cfg.desc_dim}")
     log(f"{label}: {err_txt}overflow 0, {stats.camera_steps} camera steps, {stats.prunes} "
         f"prunes ({stats.prune_updates} with an update), launches "
@@ -1447,10 +1477,11 @@ def predicted_batched_launches(K, cfg, C: int, B: int, Bp: int) -> dict:
     update run on every frame: the triage and the update kernels launch
     twice per frame."""
     pred = dict.fromkeys(K.LAUNCHES, 0)
-    for kind in (_block_kind(Bp), *[_block_kind(1), _block_kind(B - 1)] * C):
+    for kind in (_block_kind(Bp, cfg), *[_block_kind(1, cfg), _block_kind(B - 1, cfg)] * C):
         if kind != "scan":
             pred[kind] += 1
-    pred["verification_scores"] = C
+    if "verification_scores" in path_kernels(cfg):
+        pred["verification_scores"] = C
     for name in ("triage_refresh_fused", "update_terms_fused", "batched_gating_gamma"):
         if name in path_kernels(cfg):
             pred[name] = 2 * C
@@ -1552,6 +1583,279 @@ def phase_batched(torch, pkg, K, seq, single=None):
         _, prof_run = make_run(cfg, 20 + 10 * 20)
         profile_window(torch, prof_run, 20, label)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the gain solvers, the Gauss-Newton triangulation, the XLA-only forms
+# ---------------------------------------------------------------------------
+
+SOLVER_TICKS = 400  # the use_pallas=False run, the sync checks and the batched chain
+
+
+def _filter_system(rng, D, gain_scale):
+    """tests/test_torch_solve.py's realistic system: Bt = sigma^2 I + s P A,
+    float64 numpy."""
+    H = rng.standard_normal((40, D))
+    A = H.T @ H
+    P = rng.standard_normal((D, D))
+    P = P @ P.T + np.eye(D)
+    s = gain_scale * 0.01 / np.abs(P @ A).max()
+    return 0.01 * np.eye(D) + s * (P @ A), P
+
+
+def _spd_system(rng, D, cond, rank=40):
+    """tests/test_torch_solve.py's P of the given condition and A = H^T H."""
+    Q, _ = np.linalg.qr(rng.standard_normal((D, D)))
+    P = (Q * np.logspace(0, -np.log10(cond), D)) @ Q.T
+    H = rng.standard_normal((rank, D)) / np.sqrt(rank)
+    return P, H.T @ H
+
+
+def _hard_system(rng, D):
+    """tests/test_torch_solve.py's hopeless system, cond(Bt) > 1e5."""
+    A = rng.standard_normal((D, D))
+    P = rng.standard_normal((D, D))
+    Bt = 1e-4 * np.eye(D) + (P @ P.T) @ (A @ A.T)
+    check(np.linalg.cond(Bt) > 1e5, "solvers: the hard system is not hard")
+    return Bt, P @ P.T
+
+
+def check_solves(torch, dtype_name, rng, D):
+    """The gain solves on the card at D on the CPU tests' systems: the
+    unbatched gain_solve is the LU's bits; the rule's batch of BATCH
+    realistic systems is within 1e-5 of a float64 solve; one hard system
+    sends the whole batch to the batched LU's bits; one Newton-Schulz step
+    falls back to the LU's bits; the Cholesky solve at cond(P) = 1e8 is
+    finite."""
+    from msckf_tpu_torch.ops import solve as S
+
+    dt = getattr(torch, dtype_name)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(device=DEVICE, dtype=dt)
+
+    def lu(Bt, P):
+        return torch.linalg.solve_ex(Bt, P, check_errors=False).result
+
+    Bt, P = (t(x) for x in _filter_system(rng, D, 0.3))
+    check(same_bits(torch, S.gain_solve(Bt, P), lu(Bt, P)),
+          f"solvers {dtype_name}: unbatched gain_solve is not the LU's bits")
+    systems = [_filter_system(rng, D, g) for g in np.linspace(0.1, 2.0, BATCH)]
+    Btb, Pb = t(np.stack([b for b, _ in systems])), t(np.stack([p for _, p in systems]))
+    Y = torch.func.vmap(S.gain_solve)(Btb, Pb)
+    Yr = torch.linalg.solve(Btb.double(), Pb.double())
+    rel = float((Y.double() - Yr).abs().max() / Yr.abs().max())
+    check(rel < 1e-5, f"solvers {dtype_name}: batched gain_solve rel error {rel:.2e} >= 1e-5")
+    kept = not same_bits(torch, Y, lu(Btb, Pb))
+    hBt, hP = _hard_system(rng, D)
+    Btb[-1], Pb[-1] = t(hBt), t(hP)
+    check(same_bits(torch, torch.func.vmap(S.gain_solve)(Btb, Pb), lu(Btb, Pb)),
+          f"solvers {dtype_name}: a batch with a hard system is not the batched LU's bits")
+    P1, A1 = (t(x) for x in _spd_system(rng, D, 1e3))
+    Bt1 = 1e-3 * torch.eye(D, dtype=dt, device=DEVICE) + P1 @ A1
+    check(same_bits(torch, S.ns_solve_direct(Bt1, P1, iters=1), lu(Bt1, P1)),
+          f"solvers {dtype_name}: ns_solve_direct(iters=1) is not the LU's bits")
+    P8, A8 = (t(x) for x in _spd_system(rng, D, 1e8))
+    L8 = S.chol_gain_solve(P8, A8, 1.5)
+    check(bool(torch.isfinite(L8).all()), f"solvers {dtype_name}: chol at cond 1e8 not finite")
+    lu8 = lu(1.5 * torch.eye(D, dtype=dt, device=DEVICE) + P8 @ A8, P8).T
+    rel8 = float((L8 - lu8).abs().max() / lu8.abs().max())
+    check(rel8 < 1e-2, f"solvers {dtype_name}: chol at cond 1e8 differs from the LU by {rel8:.2e}")
+    log(f"solvers {dtype_name}: D={D}: unbatched gain_solve = the LU's bits; B={BATCH} "
+        f"realistic systems rel error {rel:.2e} vs float64 (Newton-Schulz kept: {kept}); "
+        f"one hard system -> the batched LU's bits; ns_solve_direct(iters=1) = the LU's bits; "
+        f"chol at cond(P) 1e8 finite, {rel8:.2e} from the LU")
+
+
+def time_solvers(torch, pkg, rng) -> dict:
+    """CUDA-event times (median of 25) of the correction chain
+    (``_correction_terms``: the solve, delta and the Joseph update) at the
+    reference capacities (D = 207) for each gain solver, single and under
+    vmap at B = BATCH, with a float32 filter and a float32 or a float64
+    chain; and of the solves alone: the LU, the Newton-Schulz solve without
+    its gate, ns_solve_direct (the same with the gate's residual and its
+    always-computed LU) and gain_solve's rule. Well-conditioned systems,
+    so every gate keeps its Newton-Schulz answer."""
+    import dataclasses
+
+    from msckf_tpu_torch.filter.update import _correction_terms
+    from msckf_tpu_torch.ops import solve as S
+
+    base = pkg.reference_experiment_config()
+    D, B = base.err_dim, BATCH
+    H = rng.standard_normal((B, 30, D)) * 1e-3
+    A = np.einsum("bri,brj->bij", H, H)
+    P = rng.standard_normal((B, D, D)) * 0.05
+    P = P @ np.swapaxes(P, 1, 2) + 0.01 * np.eye(D)
+    c = rng.standard_normal((B, D))
+    rows = {}
+    for ct in ("float32", "float64"):
+        args = [torch.as_tensor(x, dtype=torch.float32, device=DEVICE) for x in (P, A, c)]
+        variants = [("lu", "lu"), ("ns", "lu"), ("chol", "lu")]
+        if ct == "float32":
+            variants.append(("lu", "ns"))  # the batched float32 chain's rule
+        for gain, batched in variants:
+            cfg = dataclasses.replace(base, correction_dtype=ct, gain_solver=gain,
+                                      batched_solver=batched)
+            name = f"chain {ct} " + (gain if batched == "lu" else "gain_solve rule")
+            one = time_ms(torch, lambda: _correction_terms(cfg, args[0][0], args[1][0],
+                                                           args[2][0]))
+            vm = torch.func.vmap(lambda p, a, cc: _correction_terms(cfg, p, a, cc))
+            many = time_ms(torch, lambda: vm(*args))
+            rows[name] = (one, many)
+        dt = getattr(torch, ct)
+        Pd, Ad = args[0].to(dt), args[1].to(dt)
+        Bt = base.sigma_image**2 * torch.eye(D, dtype=dt, device=DEVICE) + Pd @ Ad
+        solves = {
+            "lu": lambda b, p: torch.linalg.solve_ex(b, p, check_errors=False).result,
+            "ns (no gate)": lambda b, p: S._ns_solve(b, p, base.solver_ns_iters),
+            "ns_solve_direct": lambda b, p: S.ns_solve_direct(b, p, base.solver_ns_iters),
+        }
+        for sname, f in solves.items():
+            rows[f"solve {ct} {sname}"] = (time_ms(torch, lambda: f(Bt[0], Pd[0])),
+                                           time_ms(torch, lambda: torch.func.vmap(f)(Bt, Pd)))
+        rule = torch.func.vmap(lambda b, p: S.gain_solve(b, p, base.solver_ns_iters))
+        rows[f"solve {ct} gain_solve rule"] = (None, time_ms(torch, lambda: rule(Bt, Pd)))
+    for name, (one, many) in rows.items():
+        log(f"solvers time: {name:32s} single {_fmt_ms(one):>14s}, B={B} {_fmt_ms(many):>14s}")
+    return rows
+
+
+def batched_float32_chain(torch, pkg, K):
+    """BATCH seeds of the circle, SOLVER_TICKS ticks, float32 filter with a
+    float32 correction chain through the batched loop (default dispatch),
+    with batched_solver "ns" (gain_solve's rule: one Newton-Schulz solve of
+    the batch, one residual, the batched LU selected where it fails) and
+    "lu": overflow 0, launches one per call site and frame, no functorch
+    fallback, 0 host syncs; the position gap between the two runs per
+    sequence, and how often the rule kept its Newton-Schulz answer."""
+    from msckf_tpu_torch.data.stream import to_device
+    from msckf_tpu_torch.ops import solve as S
+
+    outs = {}
+    std = None
+    for solver in ("ns", "lu"):
+        cfg = pkg.reference_experiment_config(correction_dtype="float32", batched_solver=solver)
+        if std is None:
+            std = to_device(pkg.circle_streams(cfg, range(BATCH), max_ticks=SOLVER_TICKS), cfg,
+                            DEVICE)
+        states = pkg.batched_initial_state(cfg, BATCH, std.R_init, device=DEVICE)
+        stats = pkg.FrameStats()
+        residuals = []
+        original = S._relative_residual
+
+        def recording(Bt, P, Y, dims=(-2, -1)):
+            res = original(Bt, P, Y, dims)
+            if dims == (0, 1, 2):
+                residuals.append(res)  # read after the run: no sync inside it
+            return res
+
+        C, Bt_, Bp = (std.frames["imu_ts"].shape[1], std.frames["imu_ts"].shape[2],
+                      std.prefix["imu_ts"].shape[1])
+        torch.cuda.synchronize()
+        K.reset_launches()
+        S._relative_residual = recording
+        try:
+            with warnings.catch_warnings():
+                warnings.filterwarnings("error", message=".*batching rule.*")
+                t0 = time.perf_counter()
+                final, _, fr = pkg.batched_run_sequence(cfg, states, std.prefix, std.frames,
+                                                        assume_camera=True, device=DEVICE,
+                                                        stats=stats)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+        finally:
+            S._relative_residual = original
+        launches = K.launch_counts()
+        dcfg = pkg.batched_dispatch(cfg)
+        predicted = predicted_batched_launches(K, dcfg, C, Bt_, Bp)
+        for k, v in launches.items():
+            check(v == predicted[k], f"batched chain {solver}: {k} launched {v} times, "
+                                     f"predicted {predicted[k]}")
+        overflow = (final.diag.n_track_overflow + final.diag.n_update_overflow).cpu().numpy()
+        check(not overflow.any(), f"batched chain {solver}: overflow {overflow.tolist()}")
+        check(stats.host_syncs == 0, f"batched chain {solver}: {stats.host_syncs} host syncs")
+        check(bool(torch.isfinite(final.imu.p_WI).all()), f"batched chain {solver}: non-finite")
+        kept = ""
+        if solver == "ns":
+            check(len(residuals) > 0, "batched chain ns: gain_solve's rule never ran")
+            res = torch.stack(residuals).double().cpu().numpy()
+            kept = (f"; the rule ran {len(res)} times and kept its Newton-Schulz answer "
+                    f"{int((res < 1e-4).sum())} times (worst batch residual {res.max():.2e})")
+        log(f"batched chain {solver}: B={BATCH} x {C} frames x {Bt_} ticks, float32 filter and "
+            f"chain, batched_solver={solver!r}: overflow 0, 0 host syncs, {seconds:.3f} s, "
+            f"{BATCH * C / seconds:.1f} aggregate frames/s; launches "
+            f"{ {k: v for k, v in launches.items() if v} } (= predicted){kept}")
+        outs[solver] = (fr.p_WI.double(), fr.valid)
+    (pn, vn), (pl, vl) = outs["ns"], outs["lu"]
+    check(torch.equal(vn, vl), "batched chain: the two runs' valid ticks differ")
+    gap = torch.where(vn[..., None], (pn - pl).abs(), 0.0).amax(dim=(1, 2, 3)).cpu().numpy()
+    log(f"batched chain: position gap ns vs lu per sequence (max over ticks), m: "
+        f"{np.array2string(gap, precision=2, max_line_width=400)}; max {gap.max():.3e}")
+
+
+def phase_solvers(torch, pkg, K, seq, default_run=None):
+    """The settings of the gain-solver slice on the card: the solves checked
+    and timed at D = 207; the whole circle with gain_solver "ns", "chol" and
+    triangulation "gn", and SOLVER_TICKS ticks with use_pallas=False, each
+    with its error, overflow, launch and sync checks (no triage kernel under
+    gn, no kernel at all with use_pallas=False); frames/s of the three
+    whole-circle configurations and of the default loop, two runs each in
+    turns; the batched float32
+    chain with batched_solver "ns" and "lu"; float64 card-vs-CPU parity of
+    the four."""
+    rng = np.random.default_rng(9)
+    D = pkg.reference_experiment_config().err_dim
+    for dtype_name in ("float32", "float64"):
+        check_solves(torch, dtype_name, rng, D)
+    time_solvers(torch, pkg, rng)
+
+    driven = {}
+    for label, overrides in (("ns", dict(gain_solver="ns")), ("chol", dict(gain_solver="chol")),
+                             ("gn", dict(triangulation="gn"))):
+        cfg = pkg.reference_experiment_config(**overrides)
+        run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, f"solvers {label}")
+        if label == "gn":
+            check(launches["triage_refresh_fused"] == 0, "solvers gn: the triage kernel ran")
+        sstats = pkg.FrameStats()
+        _, srun = _run(torch, pkg, cfg, seq, DEVICE, SOLVER_TICKS, sstats)
+        sites = sync_check(torch, srun, sstats, f"solvers {label}")
+        log(f"solvers {label}: first run {first_s:.3f} s; host syncs per frame "
+            f"{stats.host_syncs / stats.frames:.3f} ({stats.host_syncs} over {stats.frames} "
+            f"frames); sync check over {SOLVER_TICKS} ticks: PyTorch sync-debug warnings "
+            f"{sum(sites.values())}, by site {sites} (the port's equal the loop's count)")
+        driven[label] = (run, C)
+
+    cfg = pkg.reference_experiment_config(use_pallas=False)
+    run, stats, launches, _, seconds = drive(torch, pkg, K, seq, cfg, "solvers xla-only",
+                                             max_ticks=SOLVER_TICKS)
+    check(sum(launches.values()) == 0, f"solvers xla-only: kernels launched {launches}")
+    sites = sync_check(torch, run, stats, "solvers xla-only")
+    log(f"solvers xla-only: {SOLVER_TICKS} ticks in {seconds:.3f} s "
+        f"({stats.frames / seconds:.2f} frames/s), no kernel launched; PyTorch sync-debug "
+        f"warnings {sum(sites.values())}, by site {sites}")
+
+    if default_run is None:
+        _, default_run = _run(torch, pkg, pkg.reference_experiment_config(), seq, DEVICE)
+    # the driven runs paid each configuration's first-call costs, so the
+    # rates come from two runs each in turns after them
+    runs = {"default": default_run, **{k: v[0] for k, v in driven.items()}}
+    names = ["default", "ns", "chol", "gn"]
+    times = timed_runs(torch, runs, names + names[::-1])
+    C = next(iter(driven.values()))[1]
+    med = {name: float(np.median(times[name])) for name in names}
+    for name in names:
+        log(f"rates: solvers {name} {_rate(C, times[name])}")
+    log(f"rates: solvers frames/s ratios "
+        + ", ".join(f"{n} / default {med['default'] / med[n]:.3f}" for n in names[1:])
+        + " (two runs each after the driven runs, in turns ABCDDCBA)")
+
+    batched_float32_chain(torch, pkg, K)
+
+    for label, overrides in (("ns", dict(gain_solver="ns")), ("chol", dict(gain_solver="chol")),
+                             ("gn", dict(triangulation="gn")),
+                             ("xla-only", dict(use_pallas=False))):
+        phase_parity(torch, pkg, K, seq, f"solvers {label}", **overrides)
 
 
 def profile_window(torch, run, n_frames: int, label: str):
@@ -1691,6 +1995,9 @@ def main(argv=None) -> int:
         phase("batched")
         single = driven["default"][:2] + driven["default"][3:] if "default" in driven else None
         batched_launches = phase_batched(torch, pkg, K, seq, single)
+    if "solvers" in phases:
+        phase("solvers")
+        phase_solvers(torch, pkg, K, seq, driven["default"][0] if "default" in driven else None)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

@@ -145,6 +145,16 @@ def select_rows(idx: torch.Tensor, ok, x: torch.Tensor) -> torch.Tensor:
     return _rows_where(ok, out)
 
 
+def resolve_cam_slots(obs_cam_id: torch.Tensor, cam_ids: torch.Tensor):
+    """Map per-observation camera ids to camera slots: returns (slots,
+    found), the first slot holding the id (0 where none does) and whether
+    one does."""
+    eq = obs_cam_id[..., None] == cam_ids  # (..., N)
+    found = torch.any(eq, dim=-1)
+    slots = torch.argmax(eq.to(torch.uint8), dim=-1)
+    return slots, found
+
+
 def gather_cam_poses(obs_cam_id: torch.Tensor, cams):
     """Per-observation camera pose lookup as a one-hot product, exactly as
     the JAX package computes it: returns (R (..., 3, 3), t (..., 3), onehot

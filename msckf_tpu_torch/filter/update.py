@@ -7,17 +7,23 @@ Pi = I - H_f (H_f^T H_f)^+ H_f^T, and the Kalman update in information form
 from A = sum H~^T H~ and c = sum H~^T r~ over gated features plus one
 (D, D) solve.
 
-What the port takes: the triage kernel (``use_pallas_triage=True``, the
-default) or the plain line-intersection triage; the hybrid update terms with
-the gating kernel (``update_kernel="hybrid"``, ``gating_solver="auto"``, the
-default), the fused update-terms kernel (``update_kernel="fused"``, which
-ignores ``gating_solver`` as in the JAX package), or the hybrid terms with
-the batched-Cholesky gate (``update_kernel="xla"`` or
-``gating_solver="xla"``) or with the Jacobi-scaled Newton-Schulz gate
-(``gating_solver="ns"``; S built in float32 with TF32 off, where the JAX
-package builds it at the TPU's bf16-input matmul precision); and the LU
-gain solve with a float64 or float32 correction chain. The other settings
-raise ``NotImplementedError``.
+What the port takes: every setting of the JAX package but the compensated
+correction island (``correction_dtype="compensated"``, which raises). The
+triage kernel (``use_pallas_triage=True``, the default) or the plain
+line-intersection triage, with ``triangulation="gn"`` the Gauss-Newton
+refinement of each valid track's inverse-depth point; the hybrid update
+terms with the gating kernel (``update_kernel="hybrid"``,
+``gating_solver="auto"``, the default), the fused update-terms kernel
+(``update_kernel="fused"``, which ignores ``gating_solver`` as in the JAX
+package), or the hybrid terms with the batched-Cholesky gate
+(``update_kernel="xla"``, ``gating_solver="xla"`` or ``use_pallas=False``)
+or with the Jacobi-scaled Newton-Schulz gate (``gating_solver="ns"``; S
+built in float32 with TF32 off, where the JAX package builds it at the
+TPU's bf16-input matmul precision); and the LU, Newton-Schulz
+(``gain_solver="ns"``) or Cholesky (``gain_solver="chol"``) gain solve with
+a float64 or plain correction chain, the batched float32 chain through
+``ops/solve.py::gain_solve``. ``use_pallas=False`` turns every kernel off,
+as the JAX package's master switch does.
 
 One repair against the JAX package: it masks the per-track factor W but not
 Kc in T_wk = sum W^T Kc, so a rejected track with an inf Jacobian gives
@@ -36,15 +42,17 @@ from msckf_tpu_torch.config import MSCKFConfig, unsupported
 from msckf_tpu_torch.filter.state import (
     OBS_CAM_ID, OBS_KP, FilterState, TrackStore, device_consts,
 )
-from msckf_tpu_torch.filter.tracks import _rows_where, gather_cam_poses, select_rows
+from msckf_tpu_torch.filter.tracks import (
+    _rows_where, gather_cam_poses, resolve_cam_slots, select_rows,
+)
 from msckf_tpu_torch.ops import kernels
 from msckf_tpu_torch.ops.geometry import idp_angles_m, skew, so3_exp
 from msckf_tpu_torch.ops.smallmat import (
     default_rcond, matmul_small, matvec_small, polar_orthonormalize,
     tikhonov_inv_sym3, transpose_small,
 )
-from msckf_tpu_torch.ops.solve import ns_inverse
-from msckf_tpu_torch.ops.triangulation import intersect_lines
+from msckf_tpu_torch.ops.solve import chol_gain_solve, gain_solve, ns_inverse, ns_solve_direct
+from msckf_tpu_torch.ops.triangulation import intersect_lines, refine_inverse_depth_gn
 
 
 class TriageResult(NamedTuple):
@@ -58,9 +66,9 @@ def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) 
     and last bearing above threshold); valid tracks are triangulated by
     weighted line intersection and their inverse-depth point refreshed when
     the point re-projects into the anchor camera's image (the triage kernel,
-    or its plain line-intersection form with ``use_pallas_triage=False``)."""
-    if cfg.triangulation != "lines":
-        unsupported("triangulation", cfg.triangulation, "§1 later slices")
+    or its plain line-intersection form with ``use_pallas_triage=False``).
+    With ``triangulation="gn"`` the plain form seeds a Gauss-Newton
+    refinement of every valid track's point."""
     c = device_consts(cfg, state.device)
     tr = state.tracks
     sub = subset & tr.valid
@@ -86,7 +94,8 @@ def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) 
 
     # triangulate + refresh the inverse-depth point of valid tracks
     R_a, t_a, _ = gather_cam_poses(tr.obs_cam_id[:, 0], state.cams)
-    if cfg.use_pallas and cfg.use_pallas_triage:
+    gn = cfg.triangulation == "gn"
+    if cfg.use_pallas and cfg.use_pallas_triage and not gn:
         # the line fields are views of the packed observation store
         new_m, new_rho_raw, proj_ok = kernels.triage_refresh_fused(
             tr.line_base.contiguous(), tr.line_dir.contiguous(),
@@ -112,6 +121,20 @@ def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) 
         W_v = matvec_small(R_a, torch.cat([Im_p, ones], dim=-1) @ c.Kinv.T)
         new_m = idp_angles_m(W_v)
         new_rho = 1.0 / torch.where(refresh, Ci_p[:, 2], torch.ones_like(Ci_p[:, 2]))
+    if gn:
+        # Gauss-Newton refinement of (theta, phi, rho) about the anchor,
+        # seeded by the line intersection where it refreshed the point, and
+        # written wherever the track is valid
+        obs_slots, _ = resolve_cam_slots(tr.obs_cam_id, state.cams.cam_id)  # (F, M)
+        ones_m = torch.ones(tr.kp.shape[:-1] + (1,), dtype=tr.kp.dtype, device=tr.kp.device)
+        z_obs = (torch.cat([tr.kp, ones_m], dim=-1) @ c.Kinv.T)[..., :2]
+        new_m, new_rho = refine_inverse_depth_gn(
+            tr.idp_base, torch.where(refresh[:, None], new_m, tr.idp_m),
+            torch.where(refresh, new_rho, tr.idp_rho),
+            state.cams.R[obs_slots], state.cams.t[obs_slots], z_obs, tr.obs_valid,
+            iters=cfg.gn_iters,
+        )
+        refresh = valid
     tracks = tr.replace(
         idp_m=torch.where(refresh[:, None], new_m, tr.idp_m),
         idp_rho=torch.where(refresh, new_rho, tr.idp_rho),
@@ -130,10 +153,8 @@ class UpdateTerms(NamedTuple):
 def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor) -> UpdateTerms:
     """Residuals, OC-projected Jacobians, nullspace projection, chi-square
     gate and the information-form accumulation: the fused update-terms
-    kernel, or the hybrid terms gated by the gating kernel or by a batched
-    Cholesky."""
-    if not cfg.use_pallas:
-        unsupported("use_pallas", False, "§1 later slices: the XLA-only forms")
+    kernel, or the hybrid terms gated by the gating kernel, by the
+    Newton-Schulz gate or by a batched Cholesky."""
     dt_ = cfg.jdtype
     dev = state.device
     cst = device_consts(cfg, dev)
@@ -209,7 +230,7 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     oh_rows = torch.repeat_interleave(onehot, 2, dim=1)  # (U, 2M, N), rows (m, c)
     Hcam = (oh_rows[..., :, None] * Hx6.reshape(U, 2 * M, 1, 6)).reshape(U, 2 * M, 6 * N)
 
-    if cfg.update_kernel == "fused":
+    if cfg.use_pallas and cfg.update_kernel == "fused":
         # projector, gate and masked accumulation in one kernel call over the
         # camera span: the 15 IMU columns of the Jacobian are zero, so they
         # add nothing to S, A or c, and A and c are padded as below
@@ -237,7 +258,7 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     S = torch.einsum("ure,use->urs", HP, H_t) + sigma2 * torch.eye(2 * M, dtype=dt_, device=dev)
     if cfg.gating_solver == "ns":
         gamma = _ns_gamma(S, r_t, cfg.gating_ns_iters, sigma2)
-    elif cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
+    elif cfg.use_pallas and cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
         gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
     else:
         gamma = _cholesky_gamma(S, r_t)
@@ -302,11 +323,14 @@ def _cholesky_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
 
 def _correction_terms(cfg: MSCKFConfig, P, A, c):
     """delta = L c and the Joseph-form P update, L = P B^{-1},
-    B = sigma^2 I + A P, in float64 when ``correction_dtype="float64"``."""
-    if cfg.gain_solver != "lu":
-        unsupported("gain_solver", cfg.gain_solver, "§1 later slices")
-    if cfg.correction_dtype not in ("float64", "float32"):
-        unsupported("correction_dtype", cfg.correction_dtype, "§1 later slices: the compensated island")
+    B = sigma^2 I + A P: in float64 when ``correction_dtype="float64"``,
+    else in the filter's type. ``gain_solver`` picks the solve of
+    B^T Y = P; a float32 chain with ``batched_solver="ns"`` takes
+    ``gain_solve``, the LU for one sequence and the Newton-Schulz solve
+    under vmap."""
+    if cfg.correction_dtype == "compensated":
+        unsupported("correction_dtype", cfg.correction_dtype,
+                    "§1 item 9: the compensated island")
     dt_ = cfg.jdtype
     D = cfg.err_dim
     ct = torch.float64 if cfg.correction_dtype == "float64" else dt_
@@ -316,10 +340,17 @@ def _correction_terms(cfg: MSCKFConfig, P, A, c):
     sigma2 = cfg.sigma_image**2
     eye = torch.eye(D, dtype=ct, device=P.device)
 
-    # L = P B^{-1}: solve B^T Y = P, L = Y^T, with B^T = sigma^2 I + P A.
-    # solve_ex without its error check: the check would wait for the device
+    # L = P B^{-1}: solve B^T Y = P, L = Y^T, with B^T = sigma^2 I + P A
     Bt = sigma2 * eye + P @ A_
-    Y = torch.linalg.solve_ex(Bt, P, check_errors=False).result
+    if cfg.gain_solver == "ns":
+        Y = ns_solve_direct(Bt, P, iters=cfg.solver_ns_iters)
+    elif cfg.gain_solver == "chol":
+        Y = chol_gain_solve(P, A_, sigma2).T
+    elif ct == torch.float32 and cfg.batched_solver == "ns":
+        Y = gain_solve(Bt, P, iters=cfg.solver_ns_iters)
+    else:
+        # solve_ex without its error check: the check would wait for the device
+        Y = torch.linalg.solve_ex(Bt, P, check_errors=False).result
     L = Y.T
     delta = (L @ c_).to(dt_)
 

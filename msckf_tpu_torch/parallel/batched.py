@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from msckf_tpu_torch.config import MSCKFConfig, unsupported
+from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.msckf import (
     FrameStats, TickOutput, frame_step, make_initial_state, propagate_prefix,
 )
@@ -44,7 +44,11 @@ def batched_dispatch(cfg: MSCKFConfig) -> MSCKFConfig:
       the JAX package's does with x64 on. The float64 LU island stays; a
       float32 filter with ``correction_dtype="compensated"`` gets
       ``island_solver="ns"``, as in JAX (the compensated island itself is
-      not ported and raises).
+      not ported and raises). A float32 chain (``dtype="float32"`` with
+      ``correction_dtype="float32"``) takes ``batched_solver``: with
+      ``"ns"``, the default, the vmap rule of ``ops/solve.py::gain_solve``
+      solves the whole batch by Newton-Schulz with one residual gate and the
+      batched LU as its fallback.
 
     The reasons for these overrides are TPU measurements recorded in the
     JAX module (batch 32 on a v5e: the triage kernel's batch grid runs as a
@@ -61,16 +65,6 @@ def batched_dispatch(cfg: MSCKFConfig) -> MSCKFConfig:
             and cfg.island_solver != "ns"):
         cfg = dataclasses.replace(cfg, island_solver="ns")
     return cfg
-
-
-def _check_batched(cfg: MSCKFConfig) -> None:
-    """The one setting whose batched form is a solver the port lacks: the
-    JAX package's float32 gain solve under vmap is its Newton-Schulz
-    ``gain_solve`` (``msckf_tpu/filter/update.py:481-487``)."""
-    ct = cfg.jdtype if cfg.correction_dtype == "float32" else torch.float64
-    if ct == torch.float32 and cfg.batched_solver == "ns":
-        unsupported("batched_solver", cfg.batched_solver,
-                    "§1 item 3: the Newton-Schulz gain solve")
 
 
 def batched_initial_state(cfg: MSCKFConfig, batch: int, R_init=None,
@@ -129,7 +123,6 @@ def batched_frame_step(cfg: MSCKFConfig, states: FilterState, frames: dict,
     (batch, B) axes)."""
     if dispatch_auto:
         cfg = batched_dispatch(cfg)
-    _check_batched(cfg)
     _check_inputs(states, (frames,), device)
     states, out, _ = _step(cfg, assume_camera)(states, frames)
     return states, out
@@ -155,7 +148,6 @@ def batched_run_sequence(cfg: MSCKFConfig, states: FilterState, prefix: dict, fr
     """
     if dispatch_auto:
         cfg = batched_dispatch(cfg)
-    _check_batched(cfg)
     _check_inputs(states, (prefix, frames), device)
     states, pre_out = torch.func.vmap(lambda s, p: propagate_prefix(cfg, s, p))(states, prefix)
     step = _step(cfg, assume_camera)

@@ -35,6 +35,8 @@ from msckf_tpu_torch.data.stream import to_device
 from msckf_tpu_torch.filter.update import _cholesky_gamma, _ns_gamma
 from msckf_tpu_torch.ops import kernels as K
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CAPS = dict(dtype="float64", f_max=128, u_max=16, k_max=128, m_max=6, n_cam_slots=6,
             max_camera_states=3, min_parallax_deg=20.0, desc_dim=10)
 SEEDS = (0, 1, 2)

@@ -26,6 +26,8 @@ from tests.test_torch_kernels import (
     _prop_inputs, _spd, _triage_inputs, _update_terms_inputs, _verification_inputs,
 )
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 B = 3
 RTOL = 1e-10
 K_ = np.array([[180.0, 0, 320], [0, 180, 240], [0, 0, 1]])

@@ -10,6 +10,8 @@ import torch
 import msckf_tpu.config as jcfg
 import msckf_tpu_torch.config as tcfg
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 
 def test_fields_and_defaults_match():
     jf = [(f.name, f.default) for f in dataclasses.fields(jcfg.MSCKFConfig)]

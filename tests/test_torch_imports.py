@@ -4,8 +4,10 @@
   port or chip_smoke.py imports jax, flax or the JAX package;
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
   raise without a GPU instead of carrying on on the CPU;
-* the configurations the port does not take raise NotImplementedError
-  (beside settings it does take: the NS gate, the masked prune);
+* the one configuration the port does not take, the compensated
+  correction island, raises NotImplementedError; the settings ported with
+  the gain solvers, the Gauss-Newton triangulation and the XLA-only forms
+  run on the single and the batched path;
 * chip_smoke.py refuses to run without a GPU or without the package.
 """
 
@@ -23,6 +25,9 @@ import msckf_tpu_torch as mt
 from msckf_tpu_torch.data.stream import build_stream, to_device
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 from msckf_tpu_torch.filter.msckf import frame_step
+from msckf_tpu_torch.ops import kernels as K
+
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "msckf_tpu")
@@ -112,29 +117,69 @@ def test_batched_entry_points_raise_without_gpu(monkeypatch, small):
     assert final.P.device.type == "cpu" and final.P.shape[0] == 2
 
 
-@pytest.mark.parametrize("overrides", [
-    {"gain_solver": "ns"},
-    {"triangulation": "gn", "use_pallas_triage": True},
-    {"gating_solver": "ns", "correction_dtype": "compensated"},
-    {"gain_solver": "chol"},
-    {"correction_dtype": "compensated"},
-    {"triangulation": "gn"},
-    {"prune_path": "masked", "gain_solver": "ns"},
-    {"use_pallas": False},
-])
-def test_unported_configurations_raise(small, overrides):
+def _small_variant(small, overrides):
     cfg, st = small
-    bad = mt.reference_experiment_config(**{
+    return mt.reference_experiment_config(**{
         **{f: getattr(cfg, f) for f in ("dtype", "f_max", "u_max", "k_max", "m_max",
                                          "n_cam_slots", "max_camera_states", "desc_dim",
                                          "use_pallas_triage")},
         **overrides,
     })
+
+
+@pytest.mark.parametrize("overrides", [
+    {"gating_solver": "ns", "correction_dtype": "compensated"},
+    {"correction_dtype": "compensated"},
+])
+def test_unported_configurations_raise(small, overrides):
+    """The compensated correction island is the one setting left unported."""
+    bad = _small_variant(small, overrides)
+    st = small[1]
     std = to_device(st, bad, device="cpu")
     state = mt.make_initial_state(bad, st.R_init, device="cpu")
     frame = {k: v[0] for k, v in std.frames.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
         frame_step(bad, state, frame, assume_camera=True)
+
+
+@pytest.mark.parametrize("overrides", [
+    {"gain_solver": "ns"},
+    {"triangulation": "gn", "use_pallas_triage": True},
+    {"gain_solver": "chol"},
+    {"triangulation": "gn"},
+    {"prune_path": "masked", "gain_solver": "ns"},
+    {"use_pallas": False},
+])
+def test_gain_solver_gn_and_xla_settings_run_single_and_batched(small, overrides):
+    """Settings that raised before the gain solvers, the Gauss-Newton
+    triangulation and the XLA-only forms were ported: the single loop over
+    the small stream, and the batched loop over two copies of it, which
+    equals it (without the dispatch, so both run the same configuration).
+    With use_pallas=False no kernel wrapper is called, and under gn not the
+    triage kernel's."""
+    cfg = _small_variant(small, overrides)
+    st = small[1]
+    std = to_device(st, cfg, device="cpu")
+    state = mt.make_initial_state(cfg, st.R_init, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        if not cfg.use_pallas:  # the master switch: no kernel wrapper is called
+            for name in K.LAUNCHES:
+                mp.setattr(K, name, None)
+        elif cfg.triangulation == "gn":
+            mp.setattr(K, "triage_refresh_fused", None)
+        single, _, out = mt.run_sequence(cfg, state, std.prefix, std.frames,
+                                         assume_camera=True, device="cpu")
+        states = mt.batched_initial_state(cfg, 2, st.R_init, device="cpu")
+        batched, _, bout = mt.batched_run_sequence(
+            cfg, states, {k: torch.stack([v, v]) for k, v in std.prefix.items()},
+            {k: torch.stack([v, v]) for k, v in std.frames.items()}, dispatch_auto=False,
+            assume_camera=True, device="cpu")
+    assert torch.isfinite(single.P).all() and int(single.tracks.valid.sum()) > 0
+    for b in range(2):
+        np.testing.assert_allclose(batched.P[b].numpy(), single.P.numpy(), atol=1e-12)
+        np.testing.assert_allclose(batched.imu.p_WI[b].numpy(), single.imu.p_WI.numpy(),
+                                   atol=1e-12)
+        np.testing.assert_array_equal(bout.n_tracks[b].numpy(), out.n_tracks.numpy())
 
 
 def test_chip_smoke_refuses_without_gpu_or_package(tmp_path):

@@ -18,6 +18,8 @@ import jax.numpy as jnp
 from msckf_tpu.ops import pallas_kernels as pk
 from msckf_tpu_torch.ops import kernels as K
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 RTOL = 1e-10
 
 

@@ -37,6 +37,8 @@ from msckf_tpu_torch.filter.update import build_update_terms, triage_features
 from msckf_tpu_torch.filter.verification import verify_matches
 from msckf_tpu_torch.ops import kernels as K
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CAPS = dict(dtype="float64", f_max=256, u_max=16, k_max=128, m_max=8, n_cam_slots=8,
             max_camera_states=6, desc_dim=10, use_pallas_triage=False)
 RTOL = 1e-10

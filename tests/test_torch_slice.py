@@ -24,6 +24,8 @@ import msckf_tpu_torch as mt
 from msckf_tpu_torch.data.stream import build_stream, to_device
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CFG = dict(dtype="float64", f_max=512, u_max=64, k_max=512, use_pallas_triage=False)
 T = 600
 TICK_FIELDS = ("R_WI", "p_WI", "v_WI", "sigma_rot", "sigma_pos", "n_cams", "n_tracks")

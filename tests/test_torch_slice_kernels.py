@@ -29,6 +29,8 @@ from msckf_tpu_torch.data.stream import build_stream, to_device
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 from msckf_tpu_torch.ops import kernels as K
 
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
 CAPS = dict(dtype="float64", f_max=256, u_max=16, k_max=128, m_max=8, n_cam_slots=8,
             max_camera_states=6, desc_dim=10)
 T = 600
