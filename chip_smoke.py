@@ -81,6 +81,23 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               "lu": overflow, launches, 0 host syncs, the position gap per
               sequence); and 600-tick float64 card-vs-CPU parity of the
               four settings.
+10. images  — the image-in pipeline over bench.py's rendered sequence (104
+              frames of 640 x 480, rendered on the host by the port's
+              numpy renderer) with the committed weights
+              (weights/xfeat_selfsup.npz): the CNN on the card against the
+              CPU on four frames (the backbone's largest errors; the valid
+              keypoint sets agree in at least 99 % of the slots, every
+              mismatch logged with its score gap; matched keypoints' scores
+              within 1e-5 and descriptors within 1e-4; the batched call's
+              keypoints equal to single calls'); run_sequence_images at
+              top_k = 300 with the whole-stack CNN in the runner's rendered
+              configuration and in bench.py's headline settings (NS gain and
+              gate, float32 island), each with final error < 0.5 m, no
+              overflow, launches equal to the loop's prediction, host syncs
+              per frame; CUDA-event times of detect_and_compute on one frame
+              and of the CNN stage over the stack, the filter alone, the
+              image loop's frames/s (two runs, in turns with the synthetic
+              default loop when main ran), and a 20-frame profile.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -166,7 +183,7 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers")
+          "solvers", "images")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 DEVICE = "cuda"
 
@@ -1858,6 +1875,235 @@ def phase_solvers(torch, pkg, K, seq, default_run=None):
         phase_parity(torch, pkg, K, seq, f"solvers {label}", **overrides)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the image front-end and the image-in pipeline
+# ---------------------------------------------------------------------------
+
+# bench.py's headline sequence (bench.py:228-231): 104 frames of a 640 x 480
+# ray-traced circle, rendered by the port's numpy copy of the renderer
+IMAGE_RENDER = dict(n_ticks=1040, width=640, height=480, fxy=320.0, camera_height=4.0)
+IMAGE_TOP_K = 300
+IMAGE_CNN_FRAMES = (0, 34, 68, 101)  # the CNN's card-vs-CPU frames
+WEIGHTS = REPO / "weights" / "xfeat_selfsup.npz"
+
+
+def image_cfgs(pkg, seq) -> dict:
+    """(a) the runner's --source rendered configuration: the default
+    configuration with the sequence's camera; (b) bench.py's headline
+    settings (bench.py:257-263)."""
+    H, W = seq.images.shape[1:]
+    f = IMAGE_RENDER["fxy"]
+    cam = dict(R_WC=tuple(map(tuple, seq.R_WC_extrinsic.tolist())),
+               K=((f, 0.0, W / 2.0), (0.0, f, H / 2.0), (0.0, 0.0, 1.0)), width=W, height=H)
+    return {
+        "images": pkg.reference_experiment_config(dtype="float32", **cam),
+        "images bench": pkg.reference_experiment_config(
+            dtype="float32", gain_solver="ns", correction_dtype="float32",
+            gating_solver="ns", gating_ns_iters=12, **cam),
+    }
+
+
+def conv_flops(torch, model, x):
+    """(operations of the model's convolutions on x, the model's outputs):
+    2 x multiply-adds, counted from each convolution's output shape by
+    forward hooks."""
+    total = [0.0]
+
+    def hook(mod, _, out):
+        k = mod.kernel_size[0] * mod.kernel_size[1] * mod.in_channels // mod.groups
+        total[0] += 2.0 * out.numel() * k
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            out = model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0], out
+
+
+def check_cnn(torch, model, cpu_model, images) -> float:
+    """The same weights on the card and on the CPU over IMAGE_CNN_FRAMES:
+    the backbone's largest errors, the valid keypoint sets (at least 99 %
+    of the slots agree, each mismatch logged with its score gap), scores
+    within 1e-5 and descriptors within 1e-4 on the matched keypoints; the
+    batched call against single calls on the card (the same keypoints).
+    Returns the CNN's operations per frame."""
+    from msckf_tpu_torch.models.xfeat import detect_and_compute
+
+    x = torch.as_tensor(images[list(IMAGE_CNN_FRAMES)])
+    xg = x.to(DEVICE)
+    n = len(IMAGE_CNN_FRAMES)
+    with torch.no_grad():
+        out_g = model(xg[:, None])
+    flops, out_c = conv_flops(torch, cpu_model, x[:, None])
+    flops /= n
+    errs = ", ".join(
+        f"{name} {(g.cpu() - c).abs().max().item():.3e} (of {c.abs().max().item():.3g})"
+        for name, g, c in zip(("feats", "kp_logits", "heatmap"), out_g, out_c))
+    log(f"images cnn: card against CPU, frames {list(IMAGE_CNN_FRAMES)}, float32: largest "
+        f"error {errs}")
+    det_g = [t.cpu() for t in detect_and_compute(model, xg, top_k=IMAGE_TOP_K)]
+    det_c = detect_and_compute(cpu_model, x, top_k=IMAGE_TOP_K)
+    worst_s = worst_d = 0.0
+    for i, f in enumerate(IMAGE_CNN_FRAMES):
+        (kg, dg, sg, vg), (kc, dc, sc, vc) = ([t[i] for t in det_g], [t[i] for t in det_c])
+        slot_g = {tuple(kg[j].tolist()): j for j in range(len(kg)) if vg[j]}
+        slot_c = {tuple(kc[j].tolist()): j for j in range(len(kc)) if vc[j]}
+        both = slot_g.keys() & slot_c.keys()
+        agree = len(both) / max(len(slot_g), len(slot_c), 1)
+        low_g, low_c = float(sg[vg].min()), float(sc[vc].min())
+        for side, mine, other, scores, low in (("card", slot_g, slot_c, sg, low_c),
+                                               ("CPU", slot_c, slot_g, sc, low_g)):
+            for k in sorted(mine.keys() - other.keys()):
+                s = float(scores[mine[k]])
+                log(f"images cnn: frame {f}: only the {side} keeps {k}, score {s:.6g}; the "
+                    f"other side's lowest kept score {low:.6g} (gap {s - low:.3e})")
+        check(agree >= 0.99, f"images cnn: frame {f}: keypoint sets agree in {agree:.4f} of "
+                             f"the slots, under 0.99")
+        if both:
+            jg = torch.tensor([slot_g[k] for k in both])
+            jc = torch.tensor([slot_c[k] for k in both])
+            ds = float((sg[jg] - sc[jc]).abs().max())
+            dd = float((dg[jg] - dc[jc]).abs().max())
+            check(ds <= 1e-5 and dd <= 1e-4,
+                  f"images cnn: frame {f}: matched keypoints' scores differ by {ds:.3e} "
+                  f"(limit 1e-5), descriptors by {dd:.3e} (limit 1e-4)")
+            worst_s, worst_d = max(worst_s, ds), max(worst_d, dd)
+        log(f"images cnn: frame {f}: {len(slot_g)} valid on the card, {len(slot_c)} on the "
+            f"CPU, {len(both)} in both ({agree:.4f})")
+    log(f"images cnn: matched keypoints: scores within {worst_s:.3e}, descriptors within "
+        f"{worst_d:.3e}")
+    diff_s = diff_d = 0.0
+    for i in range(n):
+        single = [t.cpu() for t in detect_and_compute(model, xg[i], top_k=IMAGE_TOP_K)]
+        check(torch.equal(single[0], det_g[0][i]) and torch.equal(single[3], det_g[3][i]),
+              f"images cnn: frame {IMAGE_CNN_FRAMES[i]}: the batched call's keypoints differ "
+              f"from a single call's")
+        diff_s = max(diff_s, float((single[2] - det_g[2][i]).abs().max()))
+        diff_d = max(diff_d, float((single[1] - det_g[1][i]).abs().max()))
+    log(f"images cnn: batched call over {n} frames against {n} single calls on the card: "
+        f"keypoints and valid equal, scores within {diff_s:.3e}, descriptors within "
+        f"{diff_d:.3e}")
+    return flops
+
+
+def image_run(torch, pkg, cfg, model, seq, max_ticks=None, stats=None):
+    """(stream on the card, its images, the initial state, a run of
+    run_sequence_images over them with the whole-stack CNN)."""
+    from msckf_tpu_torch.data.stream import build_image_stream, to_device
+
+    st = build_image_stream(cfg, seq.timestamps, seq.imu_gyro, seq.imu_acc,
+                            seq.cam_frame_ticks, max_ticks=max_ticks)
+    std = to_device(st, cfg, device=DEVICE)
+    images = torch.as_tensor(seq.images[st.proc_cam_idx], device=DEVICE)
+    state = pkg.make_initial_state(cfg, std.R_init, device=DEVICE)
+    return std, images, state, lambda: pkg.run_sequence_images(
+        cfg, model, state, std.prefix, std.frames, images, top_k=IMAGE_TOP_K,
+        device=DEVICE, stats=stats)
+
+
+def drive_images(torch, pkg, K, seq, model, cfg, label):
+    """A configuration's driven image-in run over the whole sequence: launch
+    counts set to 0 just before it and read just after; final position error
+    under 0.5 m (bench.py:287), no overflow, launches equal to the loop's
+    prediction. Returns (run, stream, images, state, seconds)."""
+    stats = pkg.FrameStats()
+    std, images, state, run = image_run(torch, pkg, cfg, model, seq, stats=stats)
+    C, B = std.frames["imu_ts"].shape
+    Bp = std.prefix["imu_ts"].shape[0]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    final, _, _ = run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = K.launch_counts()
+    overflow = int(final.diag.n_track_overflow) + int(final.diag.n_update_overflow)
+    check(overflow == 0, f"{label}: capacity overflow {overflow}")
+    gt = seq.poses_t[len(seq.timestamps) - 1]
+    err = float(np.linalg.norm(final.imu.p_WI.double().cpu().numpy() - gt))
+    check(np.isfinite(err) and err < 0.5, f"{label}: final position error {err:.4f} m, "
+                                         f"not under 0.5 m")
+    predicted = predicted_launches(K, cfg, stats, C, B, Bp)
+    for k in path_kernels(cfg):
+        check(launches[k] > 0, f"{label}: kernel {k} never launched")
+    for k, v in launches.items():
+        check(v == predicted[k], f"{label}: {k} launched {v} times, loop predicts {predicted[k]}")
+    log(f"{label}: {C} frames x {B} ticks (+{Bp}-tick prefix), {images.shape[1]}x"
+        f"{images.shape[2]} images, top_k={IMAGE_TOP_K}, whole-stack CNN; {cfg.dtype} filter, "
+        f"{cfg.correction_dtype} island, gain_solver={cfg.gain_solver!r}, "
+        f"gating_solver={cfg.gating_solver!r} (ns iters {cfg.gating_ns_iters}), "
+        f"f_max={cfg.f_max} u_max={cfg.u_max}")
+    log(f"{label}: final error {err:.4f} m, overflow 0, {stats.camera_steps} camera steps, "
+        f"{stats.prunes} prunes ({stats.prune_updates} with an update), host syncs per frame "
+        f"{stats.host_syncs / stats.frames:.3f} ({stats.host_syncs} over {stats.frames} "
+        f"frames), first run {seconds:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} } (= predicted; the others 0)")
+    return run, std, images, state, seconds
+
+
+def phase_images(torch, pkg, K, default=None):
+    """The image-in pipeline on the card over bench.py's rendered sequence
+    with the committed weights. ``default``: the main phase's driven run and
+    its frame count, timed in turns with the image loop."""
+    from msckf_tpu_torch.data.rendered import generate_rendered_circle
+    from msckf_tpu_torch.models.xfeat import detect_and_compute, load_xfeat_npz
+
+    t0 = time.perf_counter()
+    seq = generate_rendered_circle(rng=np.random.default_rng(0), **IMAGE_RENDER)
+    log(f"images: rendered {seq.images.shape[0]} frames of {seq.images.shape[2]}x"
+        f"{seq.images.shape[1]} on the host in {time.perf_counter() - t0:.1f} s")
+    model = load_xfeat_npz(str(WEIGHTS), device=DEVICE)
+    cpu_model = load_xfeat_npz(str(WEIGHTS), device="cpu")
+    flops = check_cnn(torch, model, cpu_model, seq.images)
+
+    cfgs = image_cfgs(pkg, seq)
+    driven = {label: drive_images(torch, pkg, K, seq, model, cfg, label)
+              for label, cfg in cfgs.items()}
+    cfg = cfgs["images"]
+    run, std, images, state, first_s = driven["images"]
+    C = images.shape[0]
+
+    one = images[0]
+    dc_ms = time_ms(torch, lambda: detect_and_compute(model, one, top_k=IMAGE_TOP_K))
+    stack_ms = time_ms(torch, lambda: detect_and_compute(model, images, top_k=IMAGE_TOP_K),
+                       reps=5, warmup=1)
+    bound, _ = bound_ms(0.0, flops, "float32")
+    log(f"images times: detect_and_compute on one {one.shape[1]}x{one.shape[0]} frame at "
+        f"top-{IMAGE_TOP_K}: {dc_ms:.4f} ms (CUDA events, median of 25); the CNN stage over "
+        f"the stack of {C}: {stack_ms:.3f} ms, {stack_ms / C:.4f} ms/frame (median of 5); "
+        f"the convolutions' {flops / 1e9:.3f} GFLOP/frame bound it at {bound:.4f} ms/frame "
+        f"(float32, 67 TFLOP/s)")
+    kp, desc, score, valid = detect_and_compute(model, images, top_k=IMAGE_TOP_K)
+    frames = dict(std.frames, kp=kp.to(cfg.jdtype), desc=desc.to(cfg.jdtype),
+                  score=score.to(cfg.jdtype), kp_valid=valid)
+    runs = {"images": run, "filter": lambda: pkg.run_sequence(
+        cfg, state, std.prefix, frames, assume_camera=True, device=DEVICE)}
+    order = ["images", "filter", "filter", "images"]
+    if default is not None:
+        runs["default"] = default[0]
+        order = ["default", "images", "filter", "filter", "images", "default"]
+    times = timed_runs(torch, runs, order)
+    t_img, t_fil = float(np.median(times["images"])), float(np.median(times["filter"]))
+    log(f"rates: image loop {_rate(C, times['images'])}; the filter alone over the CNN "
+        f"stage's outputs {_rate(C, times['filter'])}; the CNN stage's share of the image "
+        f"loop {stack_ms / (t_img * 1e3) * 100:.2f}%")
+    if default is not None:
+        C_d = default[1]
+        t_def = float(np.median(times["default"]))
+        log(f"rates: synthetic default loop in the same turns {_rate(C_d, times['default'])}; "
+            f"image loop / default frames/s {(C / t_img) / (C_d / t_def):.3f} (turns "
+            f"{''.join({'default': 'A', 'images': 'B', 'filter': 'C'}[n] for n in order)})")
+    _, _, _, prof_run = image_run(torch, pkg, cfg, model, seq, max_ticks=20 + 10 * 20)
+    profile_window(torch, prof_run, 20, "images")
+    log(f"images: the filter per frame {t_fil / C * 1e3:.3f} ms, the CNN per frame "
+        f"{stack_ms / C:.4f} ms, the image loop per frame {t_img / C * 1e3:.3f} ms "
+        f"(first run {first_s:.3f} s)")
+
+
 def profile_window(torch, run, n_frames: int, label: str):
     """Device busy share and the largest device-time items over one run of
     ``n_frames`` camera frames (torch.profiler, device activity only: the
@@ -1998,6 +2244,9 @@ def main(argv=None) -> int:
     if "solvers" in phases:
         phase("solvers")
         phase_solvers(torch, pkg, K, seq, driven["default"][0] if "default" in driven else None)
+    if "images" in phases:
+        phase("images")
+        phase_images(torch, pkg, K, driven["default"][:2] if "default" in driven else None)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

@@ -5,7 +5,9 @@ gravity-aligns the initial orientation from the pre-vision accelerometer
 mean, splits the IMU ticks into a propagate-only prefix and camera-frame
 blocks (tick 0 of each block carries the camera), and pads keypoints and
 descriptors to the config's static shapes. ``to_device`` turns the result
-into torch tensors on the GPU (or the CPU, when asked). ``circle_streams``
+into torch tensors on the GPU (or the CPU, when asked). ``build_image_stream``
+is the image-in pipeline's form, which carries the IMU blocks only, and
+``suggest_capacities`` sizes the buffers for a dataset. ``circle_streams``
 stacks the streams of several seeds of the circle preset for the batched
 path.
 """
@@ -146,6 +148,45 @@ def to_device(stream: PreparedStream, cfg: MSCKFConfig, device=None) -> Prepared
         R_init=stream.R_init, prefix=cast(stream.prefix), frames=cast(stream.frames),
         n_ticks=stream.n_ticks, proc_cam_idx=stream.proc_cam_idx,
     )
+
+
+def suggest_capacities(cam_keypoints, max_camera_states: int = 30) -> dict:
+    """Heuristic buffer capacities for a dataset (zero overflow on typical
+    track churn; the ``Diagnostics`` counters report a run that exceeds
+    them). ``k_max`` covers the largest per-frame keypoint count; the track
+    slots hold three times it, since weak matching spawns most keypoints as
+    fresh tracks that live two or three frames."""
+    max_kp = max((len(k) for k in cam_keypoints), default=0)
+
+    def round_up(x, m):
+        return ((int(x) + m - 1) // m) * m
+
+    return dict(
+        k_max=max(round_up(max_kp, 128), 128),
+        f_max=max(round_up(3 * max_kp, 128), 256),
+        u_max=48,
+        m_max=max_camera_states + 2,
+        n_cam_slots=max_camera_states + 2,
+    )
+
+
+IMU_FRAME_KEYS = ("imu_ts", "imu_gyro", "imu_acc", "imu_valid")
+
+
+def build_image_stream(cfg: MSCKFConfig, imu_ts, imu_gyro, imu_acc, cam_ticks,
+                       max_ticks: int | None = None,
+                       skip_first_frame: bool = True) -> PreparedStream:
+    """``build_stream`` for the image-in pipeline (``msckf_tpu_torch/
+    pipeline.py``): no features yet, so ``frames`` carries only the IMU
+    keys, and ``proc_cam_idx`` selects the caller's images that line up
+    with the frames (``images[stream.proc_cam_idx]``)."""
+    C = len(np.asarray(cam_ticks))
+    st = build_stream(
+        cfg, imu_ts, imu_gyro, imu_acc, cam_ticks, [np.zeros((0, 2))] * C,
+        [np.zeros((0, cfg.desc_dim))] * C, [np.zeros((0,))] * C,
+        max_ticks=max_ticks, skip_first_frame=skip_first_frame,
+    )
+    return st._replace(frames={k: st.frames[k] for k in IMU_FRAME_KEYS})
 
 
 def circle_streams(cfg: MSCKFConfig, seeds, max_ticks: int | None = None,

@@ -3,7 +3,8 @@
 * ``import msckf_tpu_torch`` loads neither jax nor flax, and no file of the
   port or chip_smoke.py imports jax, flax or the JAX package;
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
-  raise without a GPU instead of carrying on on the CPU;
+  raise without a GPU instead of carrying on on the CPU: the filter's, the
+  batched path's, and the image front-end's and image-in pipeline's;
 * the one configuration the port does not take, the compensated
   correction island, raises NotImplementedError; the settings ported with
   the gain solvers, the Gauss-Newton triangulation and the XLA-only forms
@@ -37,7 +38,9 @@ def test_import_leaves_jax_and_flax_out():
     code = (
         "import sys, msckf_tpu_torch, msckf_tpu_torch.filter.msckf, "
         "msckf_tpu_torch.ops.kernels, msckf_tpu_torch.data.stream, "
-        "msckf_tpu_torch.parallel.batched; "
+        "msckf_tpu_torch.parallel.batched, msckf_tpu_torch.pipeline, "
+        "msckf_tpu_torch.models.xfeat, msckf_tpu_torch.models.frontend, "
+        "msckf_tpu_torch.data.rendered; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msckf_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -115,6 +118,44 @@ def test_batched_entry_points_raise_without_gpu(monkeypatch, small):
         mt.batched_frame_step(cfg, states, {k: v[:, 0] for k, v in frames.items()})
     final, _, _ = mt.batched_run_sequence(cfg, states, prefix, frames, device="cpu")
     assert final.P.device.type == "cpu" and final.P.shape[0] == 2
+
+
+def test_image_entry_points_raise_without_gpu(monkeypatch):
+    """The front-end's constructors and the image-in pipeline take the
+    device rule: the GPU unless device="cpu", raising without one."""
+    from msckf_tpu_torch.models.frontend import FeatureExtractor
+    from msckf_tpu_torch.models.xfeat import init_params, load_xfeat_npz
+
+    cfg = mt.reference_experiment_config(dtype="float64", f_max=64, u_max=8, k_max=64,
+                                         m_max=8, n_cam_slots=8, max_camera_states=6)
+    weights = str(REPO / "weights" / "xfeat_selfsup.npz")
+    model = load_xfeat_npz(weights, device="cpu")
+    state = mt.make_initial_state(cfg, np.eye(3), device="cpu")
+    img = torch.as_tensor(np.random.default_rng(0).uniform(0, 255, (64, 64)),
+                          dtype=torch.float32)
+    ts = torch.tensor([0.005, 0.01], dtype=torch.float64)
+    blk = dict(imu_ts=ts, imu_gyro=torch.zeros(2, 3, dtype=torch.float64),
+               imu_acc=torch.tensor([[0.0, 0.0, 9.81]] * 2, dtype=torch.float64),
+               imu_valid=torch.ones(2, dtype=torch.bool))
+    prefix = dict({k: v[:1] for k, v in blk.items()}, pre_init=torch.zeros(1, dtype=torch.bool))
+    frames = {k: v[None] for k, v in blk.items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_xfeat_npz(weights)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FeatureExtractor(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.fused_frame_step(cfg, model, state, img, blk)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mt.run_sequence_images(cfg, model, state, prefix, frames, img[None])
+    final, _ = mt.fused_frame_step(cfg, model, state, img, blk, top_k=32, device="cpu")
+    assert final.P.device.type == "cpu"
+    final, _, out = mt.run_sequence_images(cfg, model, state, prefix, frames, img[None],
+                                           top_k=32, device="cpu")
+    assert final.P.device.type == "cpu" and out.p_WI.shape == (1, 2, 3)
+    assert FeatureExtractor(model, device="cpu").extract_features(img.numpy())[0].ndim == 2
 
 
 def _small_variant(small, overrides):
