@@ -98,6 +98,23 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               and of the CNN stage over the stack, the filter alone, the
               image loop's frames/s (two runs, in turns with the synthetic
               default loop when main ran), and a 20-frame profile.
+11. runner  — the port's CLI, msckf_tpu_torch.runner.main, in-process: the
+              whole synthetic circle (the runner's dataset capacities), then
+              with --stream_chunk 16 and 64: final error < 0.2 m, no
+              overflow, launches equal to twice the loop's prediction (the
+              runner's warm-up and timed run), the streamed runs bitwise
+              equal to the monolithic one (metrics, diagnostics, final
+              state) with one host sync a chunk more, the stream's device
+              bytes (peak allocation) within two chunks and a chunk's
+              outputs; frames/s of the three, two runs each in turns; a
+              checkpoint saved after half the frames, loaded on the card and
+              continued, bitwise equal to the uninterrupted run; --batch 32
+              over 600 ticks unstreamed and with --stream_chunk 64 (every
+              sequence under 0.2 m, no overflow, launches as predicted, the
+              streamed final states bitwise equal to the unstreamed,
+              aggregate frames/s); --source rendered (the runner's 320 x 240
+              circle, 800 ticks) with --frontend fused and host: error
+              < 0.5 m, no overflow, launches as predicted.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -183,7 +200,7 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers", "images")
+          "solvers", "images", "runner")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 DEVICE = "cuda"
 
@@ -2104,6 +2121,245 @@ def phase_images(torch, pkg, K, default=None):
         f"(first run {first_s:.3f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the runner, chunked streaming and checkpoint/resume
+# ---------------------------------------------------------------------------
+
+RUNNER_TICKS = 2400  # the whole synthetic circle, the runner's default
+RUNNER_CHUNKS = (16, 64)
+RUNNER_BATCH_TICKS = 600
+RENDERED_TICKS = 800  # 78 frames of the runner's 320 x 240 rendered circle
+
+
+def runner_call(torch, K, argv):
+    """runner.main in-process, with the launch counts set to 0 just before
+    and read just after. Returns (result, launches)."""
+    from msckf_tpu_torch import runner
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    res = runner.main(argv)
+    torch.cuda.synchronize()
+    return res, K.launch_counts()
+
+
+def check_runner_run(K, label, m, launches, limit):
+    """A runner run's checks: final position error (the norm of the last
+    tick's ATE) under ``limit``, no overflow, every kernel of the path
+    launched, and launches equal to twice the loop's prediction (the
+    warm-up and the timed run are the same run)."""
+    err = float(np.linalg.norm(m.ate[-1]))
+    check(np.isfinite(err) and err < limit, f"{label}: final position error {err:.4f} m, "
+                                            f"not under {limit} m")
+    overflow = m.diag["n_track_overflow"] + m.diag["n_update_overflow"]
+    check(overflow == 0, f"{label}: capacity overflow {overflow}")
+    C, B, Bp = m.blocks
+    predicted = predicted_launches(K, m.cfg, m.stats, C, B, Bp)
+    for k in path_kernels(m.cfg):
+        check(launches[k] > 0, f"{label}: kernel {k} never launched")
+    for k, v in launches.items():
+        check(v == 2 * predicted[k], f"{label}: {k} launched {v} times, the loop predicts "
+                                     f"2 x {predicted[k]} (warm-up and timed run)")
+    c, p = m.consistency, m.profiling
+    log(f"{label}: {C} frames x {B} ticks (+{Bp}-tick prefix), f_max={m.cfg.f_max} "
+        f"k_max={m.cfg.k_max} u_max={m.cfg.u_max} desc_dim={m.cfg.desc_dim}; final error "
+        f"{err:.4f} m, overflow 0, {m.stats.camera_steps} camera steps, {m.stats.prunes} prunes, "
+        f"host syncs per frame {m.stats.host_syncs / m.stats.frames:.3f}; ATE within 3-sigma "
+        f"{c['ate_within_3sigma']:.3f}, AOE {c['aoe_within_3sigma']:.3f}, NEES median "
+        f"{c['nees_median']:.2f} (in bounds {c['nees_within_bounds']:.3f}); warm-up "
+        f"{p['warmup_s']} s, timed run {p['sequence_s']:.3f} s "
+        f"({p['camera_updates_per_s']} camera updates/s); launches "
+        f"{ {k: v for k, v in launches.items() if v} } (= 2 x predicted; the others 0)")
+
+
+def same_state(label, a, b):
+    from msckf_tpu_torch.filter.state import state_to_numpy
+
+    sa, sb = state_to_numpy(a), state_to_numpy(b)
+    for k in sb:
+        check(np.array_equal(sa[k], sb[k]), f"{label}: final state {k} differs")
+
+
+def same_run(label, a, b):
+    """Two runner results bitwise equal: the diagnostics, every metric array
+    (each a function of the estimated trajectory and its variances) and
+    every leaf of the final state."""
+    import dataclasses
+
+    check(a.diag == b.diag, f"{label}: diagnostics differ {a.diag} vs {b.diag}")
+    for f in dataclasses.fields(b):
+        check(np.array_equal(np.asarray(getattr(a, f.name)), np.asarray(getattr(b, f.name))),
+              f"{label}: metric {f.name} differs")
+    same_state(label, a.final, b.final)
+
+
+def frame_bytes(stream, cfg) -> int:
+    """Device bytes of one frame of a host stream in the filter's dtype."""
+    item = np.dtype(cfg.dtype).itemsize
+    return sum((item if v.dtype == np.float64 else v.itemsize) * v[0].size
+               for v in stream.frames.values())
+
+
+def tick_output_bytes(cfg, ticks: int) -> int:
+    """Device bytes of a TickOutput over ``ticks`` ticks: R (9), p, v,
+    sigma_rot and sigma_pos (3 each) in the filter's dtype, n_cams and
+    n_tracks (int64) and valid (bool)."""
+    return ticks * (21 * np.dtype(cfg.dtype).itemsize + 2 * 8 + 1)
+
+
+def phase_runner(torch, pkg, K):
+    """The port's CLI on the card: the whole synthetic circle monolithic and
+    streamed, a checkpoint mid-sequence, a batch of BATCH sequences
+    unstreamed and streamed, and the rendered source through both
+    front-ends."""
+    import tempfile
+
+    from msckf_tpu_torch.data.stream import build_stream, to_device
+    from msckf_tpu_torch.data.synthetic import generate_circle_sequence
+    from msckf_tpu_torch.filter.streamed import run_sequence_streamed
+    from msckf_tpu_torch.utils.checkpoint import load_state, save_state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--source", "synthetic", "--max_frames", str(RUNNER_TICKS), "--device", DEVICE,
+                "--data_root", tmp]
+        mono, launches = runner_call(torch, K, base)
+        check_runner_run(K, "runner", mono, launches, 0.2)
+        cfg = mono.cfg
+        C, B = mono.blocks[:2]
+
+        # the runner's stream, for the memory bound, the timed runs and the
+        # checkpoint
+        seq = generate_circle_sequence(rng=np.random.default_rng(42))
+        st = build_stream(cfg, seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
+                          seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores,
+                          max_ticks=RUNNER_TICKS)
+        check(st.frames["imu_ts"].shape == (C, B), "runner: the rebuilt stream differs")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        std = to_device(st, cfg, DEVICE)
+        whole = torch.cuda.memory_allocated() - before
+        first = {"monolithic": mono.profiling["sequence_s"]}
+        runs = {"monolithic": lambda: pkg.run_sequence(
+            cfg, pkg.make_initial_state(cfg, std.R_init, device=DEVICE), std.prefix,
+            std.frames, assume_camera=True, device=DEVICE)}
+        for n in RUNNER_CHUNKS:
+            label = f"runner --stream_chunk {n}"
+            ms, launches = runner_call(torch, K, base + ["--stream_chunk", str(n)])
+            check_runner_run(K, label, ms, launches, 0.2)
+            same_run(label, ms, mono)
+            n_chunks = -(-C // n)
+            check(ms.stats.host_syncs == mono.stats.host_syncs + n_chunks,
+                  f"{label}: {ms.stats.host_syncs} host syncs, expected the monolithic run's "
+                  f"{mono.stats.host_syncs} + {n_chunks} chunks")
+            log(f"{label}: bitwise equal to the monolithic run (metrics, diagnostics, every "
+                f"leaf of the final state); host syncs per frame {ms.stats.host_syncs / C:.3f} "
+                f"against {mono.stats.host_syncs / C:.3f} ({n_chunks} chunks)")
+            first[label] = ms.profiling["sequence_s"]
+            runs[label] = (lambda n=n: run_sequence_streamed(
+                cfg, pkg.make_initial_state(cfg, st.R_init, device=DEVICE), st.prefix,
+                st.frames, chunk_frames=n, device=DEVICE, assume_camera=True))
+        # the second run of each, in reverse order (turns ABCCBA), with its
+        # peak device allocation above the start: the runner calls above
+        # paid the one-time allocations (cuBLAS workspaces and the like)
+        names = list(runs)
+        times, peaks = {}, {}
+        for name in names[::-1]:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start_bytes = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            peaks[name] = torch.cuda.max_memory_allocated() - start_bytes
+        med = {}
+        for name in names:
+            t = [first[name], times[name]]
+            med[name] = float(np.median(t))
+            log(f"rates: {name} {_rate(C, t)} (the runner's timed run, then one in reverse "
+                f"order)")
+        log("rates: runner frames/s ratios " + ", ".join(
+            f"{name} / monolithic {med['monolithic'] / med[name]:.3f}" for name in names[1:]))
+        # the monolithic run holds the whole stream before it starts; the
+        # filter's working set and outputs are in both peaks, so a streamed
+        # peak above the monolithic one is what its stream holds: at most
+        # two chunks and a chunk's outputs in flight (and the prefix while it
+        # runs; 512 bytes of rounding a tensor)
+        log(f"runner memory: the whole stream {whole / 2**20:.3f} MiB on the card "
+            f"({frame_bytes(st, cfg) / 1024:.2f} KiB a frame); the monolithic run's peak above "
+            f"its start {peaks['monolithic'] / 2**20:.3f} MiB, the stream resident before it")
+        for n in RUNNER_CHUNKS:
+            label = f"runner --stream_chunk {n}"
+            extra = peaks[label] - peaks["monolithic"]
+            allowed = (2 * n * frame_bytes(st, cfg) + tick_output_bytes(cfg, n * B)
+                       + sum(v.nbytes for v in std.prefix.values())
+                       + 512 * (2 * len(st.frames) + len(st.prefix) + 8))
+            check(extra <= allowed, f"{label}: the streamed run's peak is {extra} bytes above "
+                                    f"the monolithic run's, over two chunks and a chunk's "
+                                    f"outputs ({allowed})")
+            log(f"runner memory: {label}: peak above start {peaks[label] / 2**20:.3f} MiB, "
+                f"{extra / 2**20:+.3f} MiB against the monolithic run, which holds the whole "
+                f"stream's {whole / 2**20:.3f} MiB beside it (bound: two chunks and a chunk's "
+                f"outputs, {allowed / 2**20:.3f} MiB)")
+
+        # a checkpoint mid-sequence on the card: save, load, continue
+        half = C // 2
+        state = pkg.make_initial_state(cfg, std.R_init, device=DEVICE)
+        state, _ = pkg.propagate_prefix(cfg, state, std.prefix)
+        state, _ = pkg.run_filter(cfg, state, {k: v[:half] for k, v in std.frames.items()},
+                                  assume_camera=True)
+        path = str(Path(tmp) / "state.npz")
+        save_state(path, state)
+        restored = load_state(path, cfg, device=DEVICE)
+        same_state("runner checkpoint: the restored state", restored, state)
+        final, _ = pkg.run_filter(cfg, restored, {k: v[half:] for k, v in std.frames.items()},
+                                  assume_camera=True)
+        same_state("runner checkpoint: the resumed run", final, mono.final)
+        log(f"runner checkpoint: saved after frame {half} of {C} "
+            f"({Path(path).stat().st_size} bytes), loaded on the card, continued: every leaf "
+            f"of the final state bitwise equal to the uninterrupted monolithic run")
+
+        # a batch of noise realizations, unstreamed and streamed
+        batched = []
+        for label, extra in (("runner --batch", []),
+                             ("runner --batch --stream_chunk 64", ["--stream_chunk", "64"])):
+            errs, launches = runner_call(torch, K, [
+                "--source", "synthetic", "--max_frames", str(RUNNER_BATCH_TICKS), "--device",
+                DEVICE, "--batch", str(BATCH), "--data_root", tmp] + extra)
+            e = np.asarray(errs)
+            check(len(e) == BATCH and np.isfinite(e).all() and (e < 0.2).all(),
+                  f"{label}: final position errors {np.round(e, 4).tolist()} m, not all under "
+                  f"0.2 m")
+            Cb, Bt, Bp = errs.blocks
+            predicted = predicted_batched_launches(K, pkg.batched_dispatch(errs.cfg), Cb, Bt, Bp)
+            for k, v in launches.items():
+                check(v == 2 * predicted[k], f"{label}: {k} launched {v} times, one per call "
+                                             f"site and frame predicts 2 x {predicted[k]}")
+            overflow = (errs.final.diag.n_track_overflow
+                        + errs.final.diag.n_update_overflow).cpu().numpy()
+            check(not overflow.any(), f"{label}: capacity overflow {overflow.tolist()}")
+            log(f"{label}: B={BATCH} x {Cb} frames x {Bt} ticks, final errors {e.min():.4f} to "
+                f"{e.max():.4f} m (median {np.median(e):.4f}), overflow 0; timed run "
+                f"{errs.seconds:.3f} s, "
+                f"{BATCH * Cb / errs.seconds:.1f} aggregate frames/s; launches "
+                f"{ {k: v for k, v in launches.items() if v} } (= 2 x one per call site and "
+                f"frame)")
+            batched.append(errs)
+        same_state("runner --batch: the streamed", batched[1].final, batched[0].final)
+        log("runner --batch: the streamed final states bitwise equal to the unstreamed")
+
+        # the rendered source through both front-ends
+        for frontend in ("fused", "host"):
+            label = f"runner --source rendered --frontend {frontend}"
+            t0 = time.perf_counter()
+            m, launches = runner_call(torch, K, [
+                "--source", "rendered", "--max_frames", str(RENDERED_TICKS), "--device", DEVICE,
+                "--frontend", frontend, "--data_root", tmp])
+            check_runner_run(K, label, m, launches, 0.5)
+            log(f"{label}: {m.cfg.width}x{m.cfg.height} images, the call "
+                f"{time.perf_counter() - t0:.1f} s (rendering on the host included)")
+
+
 def profile_window(torch, run, n_frames: int, label: str):
     """Device busy share and the largest device-time items over one run of
     ``n_frames`` camera frames (torch.profiler, device activity only: the
@@ -2247,6 +2503,9 @@ def main(argv=None) -> int:
     if "images" in phases:
         phase("images")
         phase_images(torch, pkg, K, driven["default"][:2] if "default" in driven else None)
+    if "runner" in phases:
+        phase("runner")
+        phase_runner(torch, pkg, K)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

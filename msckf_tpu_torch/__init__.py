@@ -6,7 +6,9 @@ imports torch, numpy and scipy, never JAX. Entry points run on the GPU
 unless the caller passes ``device="cpu"``; on the CPU each kernel's plain
 PyTorch version runs instead. The image front-end (the XFeat CNN,
 ``detect_and_compute``) feeds the same loop through ``run_sequence_images``.
-See ROADMAP.md for what is ported.
+The CLI is ``python -m msckf_tpu_torch.runner``; ``filter/streamed.py``
+streams sequences longer than device memory and ``utils/checkpoint.py``
+saves and restores a state. See ROADMAP.md for what is ported.
 """
 
 from msckf_tpu_torch.config import MSCKFConfig, NOISE_PRESETS, reference_experiment_config

@@ -7,7 +7,8 @@ blocks (tick 0 of each block carries the camera), and pads keypoints and
 descriptors to the config's static shapes. ``to_device`` turns the result
 into torch tensors on the GPU (or the CPU, when asked). ``build_image_stream``
 is the image-in pipeline's form, which carries the IMU blocks only, and
-``suggest_capacities`` sizes the buffers for a dataset. ``circle_streams``
+``suggest_capacities`` sizes the buffers for a dataset, whose camera
+timestamps ``match_camera_ticks`` maps onto IMU ticks. ``circle_streams``
 stacks the streams of several seeds of the circle preset for the batched
 path.
 """
@@ -46,6 +47,22 @@ def gravity_align_numpy(mean_acc: np.ndarray, gravity: np.ndarray) -> np.ndarray
     axis = axis / n
     Kx = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
     return np.eye(3) + np.sin(theta) * Kx + (1 - np.cos(theta)) * (Kx @ Kx)
+
+
+def match_camera_ticks(imu_ts: np.ndarray, cam_ts: np.ndarray) -> np.ndarray:
+    """The reference driver's sequential timestamp matching: walking the
+    camera index from 1, a camera fires on IMU tick i when
+    |round(t_i - t_cam, 3)| < 1e-5. Returns the matched tick of each camera
+    from index 1 on."""
+    ticks = []
+    c = 1
+    for i in range(len(imu_ts)):
+        if c >= len(cam_ts):
+            break
+        if abs(round(imu_ts[i] - cam_ts[c], 3)) < 1e-5:
+            ticks.append(i)
+            c += 1
+    return np.asarray(ticks, dtype=np.int64)
 
 
 def build_stream(cfg: MSCKFConfig, imu_ts, imu_gyro, imu_acc, cam_ticks,

@@ -1,6 +1,6 @@
-"""Synthetic circle sequence (host-side NumPy).
+"""Synthetic circle and classic sequences (host-side NumPy).
 
-The port's own copy of ``msckf_tpu/data/synthetic.py``'s circle preset, kept
+The port's own copy of ``msckf_tpu/data/synthetic.py``'s presets, kept
 here because importing any ``msckf_tpu`` module imports JAX. The arithmetic
 and the order of random draws are the same, so one seed gives the same
 sequence in both packages: waypoint segments (cubic-spline positions, Slerp
@@ -109,6 +109,21 @@ def circle_segments() -> list:
     ]
 
 
+def classic_segments() -> list:
+    """The "classic" preset: a rounded rectangle of linear and cubic
+    segments."""
+    pi = np.pi
+    return [
+        ([[0, 0, 0], [10, 0, 0]], [[0, 0, 0], [0, 0, pi / 2]]),
+        ([[10, 0, 0], [13.8, 1.2, 0], [15, 5, 0]], [[0, 0, pi / 2], [0, 0, pi / 2]]),
+        ([[15, 5, 0], [15, 10, 0]], [[0, 0, pi / 2], [0, 0, pi]]),
+        ([[15, 10, 0], [13.8, 13.8, 0], [10, 15, 0]], [[0, 0, pi], [0, 0, pi]]),
+        ([[10, 15, 0], [5, 15, 0]], [[0, 0, pi], [0, 0, 3 * pi / 2]]),
+        ([[5, 15, 0], [1.2, 13.8, 0], [0, 10, 0]], [[0, 0, 3 * pi / 2], [0, 0, 3 * pi / 2]]),
+        ([[0, 10, 0], [0, 0, 0]], [[0, 0, 3 * pi / 2], [0, 0, 2 * pi]]),
+    ]
+
+
 def generate_sequence(segments, world_points, world_descriptors, rng=None,
                       rate: float = 200.0, camera_every: int = 10, K=None, R_WC=None,
                       width: int = 640, height: int = 480, sigma_pixel: float = 0.01,
@@ -178,3 +193,11 @@ def generate_circle_sequence(rng=None, n_world_points: int = 400, desc_dim: int 
     rng = rng or np.random.default_rng(42)
     wp, wd = random_world_points(rng, n_world_points, [12.0, 12.0, 5.0], [-6.0, -4.0, 0.0], desc_dim)
     return generate_sequence(circle_segments(), wp, wd, rng=rng, **kwargs)
+
+
+def generate_classic_sequence(rng=None, n_world_points: int = 200, desc_dim: int = 10,
+                              **kwargs) -> SyntheticSequence:
+    """Classic preset: 200 points in a 35x35x5 box at (-10, -10, 0)."""
+    rng = rng or np.random.default_rng(42)
+    wp, wd = random_world_points(rng, n_world_points, [35.0, 35.0, 5.0], [-10.0, -10.0, 0.0], desc_dim)
+    return generate_sequence(classic_segments(), wp, wd, rng=rng, **kwargs)

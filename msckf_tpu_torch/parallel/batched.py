@@ -94,9 +94,10 @@ def _check_inputs(states: FilterState, streams, device) -> torch.device:
     return dev
 
 
-def _step(cfg: MSCKFConfig, assume_camera: bool):
-    """The vmapped frame step: (states, frames) -> (states, TickOutput,
-    per-sequence counts of camera steps, prunes and prune updates)."""
+def vmapped_frame_step(cfg: MSCKFConfig, assume_camera: bool):
+    """The vmapped frame step, with ``cfg`` as given (no dispatch, no
+    checks): (states, frames) -> (states, TickOutput, per-sequence counts
+    of camera steps, prunes and prune updates)."""
 
     def one(state, frame):
         tally = FrameStats()
@@ -124,7 +125,7 @@ def batched_frame_step(cfg: MSCKFConfig, states: FilterState, frames: dict,
     if dispatch_auto:
         cfg = batched_dispatch(cfg)
     _check_inputs(states, (frames,), device)
-    states, out, _ = _step(cfg, assume_camera)(states, frames)
+    states, out, _ = vmapped_frame_step(cfg, assume_camera)(states, frames)
     return states, out
 
 
@@ -150,7 +151,7 @@ def batched_run_sequence(cfg: MSCKFConfig, states: FilterState, prefix: dict, fr
         cfg = batched_dispatch(cfg)
     _check_inputs(states, (prefix, frames), device)
     states, pre_out = torch.func.vmap(lambda s, p: propagate_prefix(cfg, s, p))(states, prefix)
-    step = _step(cfg, assume_camera)
+    step = vmapped_frame_step(cfg, assume_camera)
     outs = []
     for j in range(frames["imu_ts"].shape[1]):
         states, out, counts = step(states, {k: v[:, j] for k, v in frames.items()})

@@ -1,10 +1,13 @@
 """Import and device rules of the PyTorch port.
 
 * ``import msckf_tpu_torch`` loads neither jax nor flax, and no file of the
-  port or chip_smoke.py imports jax, flax or the JAX package;
+  port or chip_smoke.py imports jax, flax or the JAX package; the runner
+  and its modules load none of jax, the JAX package, pandas or OpenCV, and
+  ``python -m msckf_tpu_torch.runner --help`` runs without them;
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
   raise without a GPU instead of carrying on on the CPU: the filter's, the
-  batched path's, and the image front-end's and image-in pipeline's;
+  batched path's, the image front-end's and image-in pipeline's, the
+  streamed runs', the checkpoint loader's and the runner's;
 * the one configuration the port does not take, the compensated
   correction island, raises NotImplementedError; the settings ported with
   the gain solvers, the Gauss-Newton triangulation and the XLA-only forms
@@ -47,6 +50,71 @@ def test_import_leaves_jax_and_flax_out():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+RUNNER_MODULES = ("msckf_tpu_torch.runner", "msckf_tpu_torch.filter.streamed",
+                  "msckf_tpu_torch.utils.checkpoint", "msckf_tpu_torch.utils.metrics",
+                  "msckf_tpu_torch.utils.consistency", "msckf_tpu_torch.data.parser")
+# an import hook that makes these packages missing, as on the machine with
+# the GPU (no pandas, no OpenCV) and for the port in general (no JAX)
+_BLOCK = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'msckf_tpu', 'pandas', 'cv2'):\n"
+    "            raise ImportError('blocked: ' + name)\n"
+    "sys.meta_path.insert(0, Block())\n"
+)
+
+
+def test_runner_modules_import_without_jax_pandas_or_cv2():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {RUNNER_MODULES!r}: importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'msckf_tpu', 'pandas', 'cv2')]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    # and with those packages made unimportable, --help runs
+    code = _BLOCK + (
+        "import runpy\n"
+        "sys.argv = ['msckf_tpu_torch.runner', '--help']\n"
+        "runpy.run_module('msckf_tpu_torch.runner', run_name='__main__')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "--stream_chunk" in out.stdout and "--device" in out.stdout
+
+
+def test_streamed_checkpoint_and_runner_raise_without_gpu(monkeypatch, small, tmp_path):
+    from msckf_tpu_torch import runner
+    from msckf_tpu_torch.filter.streamed import run_batched_streamed, run_sequence_streamed
+    from msckf_tpu_torch.utils.checkpoint import load_state, save_state
+
+    cfg, st = small
+    state = mt.make_initial_state(cfg, st.R_init, device="cpu")
+    states = mt.batched_initial_state(cfg, 2, st.R_init, device="cpu")
+    path = str(tmp_path / "state.npz")
+    save_state(path, state)
+    prefix = {k: np.stack([v, v]) for k, v in st.prefix.items()}
+    frames = {k: np.stack([v, v]) for k, v in st.frames.items()}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_sequence_streamed(cfg, state, st.prefix, st.frames)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_batched_streamed(cfg, states, prefix, frames)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_state(path, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        runner.main(["--max_frames", "60", "--data_root", str(tmp_path)])
+    assert load_state(path, cfg, device="cpu").P.device.type == "cpu"
+    final, _, out = run_sequence_streamed(cfg, state, st.prefix, st.frames, chunk_frames=2,
+                                          device="cpu")
+    assert final.P.device.type == "cpu" and isinstance(out.p_WI, np.ndarray)
 
 
 def _port_files():
