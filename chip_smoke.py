@@ -36,7 +36,7 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               terms in float64): bitwise equal to B single launches, within
               the same tolerances of the plain version over the batch
               axis; its times and bound.
-3. parity   — the test capacities in float64, 600 ticks of the circle, on
+3. parity   — the test capacities in float64, 150 ticks of the circle, on
               the card and on the CPU, in the default configuration, with
               update_kernel="fused" and with the plain triage
               (use_pallas_triage=False), then the default and the fused ones
@@ -63,8 +63,8 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               kernels): every sequence within 0.2 m, no overflow, one launch
               per call site and frame (not one per sequence), no functorch
               fallback to a per-sequence loop, no host sync; aggregate
-              frames/s in turns with the single default loop; profiles
-              of the default and the fused batched loop.
+              frames/s beside the single default loop's (the driven runs);
+              profiles of the default and the fused batched loop.
 9. solvers  — the gain solves on the card at D = 207 in float32 and float64
               (the unbatched gain_solve the LU's bits; under vmap at B = 32
               within 1e-5 of float64, and the batched LU's bits for a batch
@@ -73,14 +73,13 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               of the correction chain (lu, ns, chol, single and at B = 32,
               float32 and float64 chains) and of the solves alone; the whole
               circle with gain_solver="ns", "chol" and triangulation="gn",
-              and 400 ticks with use_pallas=False, each with error,
+              and 200 ticks with use_pallas=False, each with error,
               overflow, launch and sync checks (no triage kernel under gn,
-              no kernel at all with use_pallas=False); their frames/s in
-              turns with the default loop (two runs each); the batched
-              float32 chain (B = 32, 400 ticks, batched_solver "ns" and
-              "lu": overflow, launches, 0 host syncs, the position gap per
-              sequence); and 600-tick float64 card-vs-CPU parity of the
-              four settings.
+              no kernel at all with use_pallas=False); their frames/s from
+              the driven runs; the batched float32 chain (B = 32, 200
+              ticks, batched_solver "ns" and "lu": overflow, launches, 0
+              host syncs, the position gap per sequence); and 150-tick
+              float64 card-vs-CPU parity of the four settings.
 10. images  — the image-in pipeline over bench.py's rendered sequence (104
               frames of 640 x 480, rendered on the host by the port's
               numpy renderer) with the committed weights
@@ -109,12 +108,40 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               outputs; frames/s of the three, two runs each in turns; a
               checkpoint saved after half the frames, loaded on the card and
               continued, bitwise equal to the uninterrupted run; --batch 32
-              over 600 ticks unstreamed and with --stream_chunk 64 (every
+              over 300 ticks unstreamed and with --stream_chunk 64 (every
               sequence under 0.2 m, no overflow, launches as predicted, the
               streamed final states bitwise equal to the unstreamed,
               aggregate frames/s); --source rendered (the runner's 320 x 240
-              circle, 800 ticks) with --frontend fused and host: error
+              circle, 400 ticks) with --frontend fused and host: error
               < 0.5 m, no overflow, launches as predicted.
+12. island  — the double-word correction island
+              (correction_dtype="compensated", ops/compensated.py): (a)
+              two_sum and two_prod exact against float64 on 10^6 pairs; (b)
+              _exact_pow2 exact over [-126, 127], exponents read exactly,
+              and every Ozaki slice of one island call at D = 207 on its
+              grid, at most 8 bits, exact in bfloat16, from inputs under 2;
+              (c) ozaki_matmul and df_matmul within the JAX tests' bounds of
+              a float64 product on the card, and within 1e-11 of rowmax *
+              colmax of the port's CPU result; (d) refined_solve "lu" and
+              "ns" under 1e-8 of float64, and the divergence safeguard; (e)
+              on real updates captured from the circle on the card, the
+              island within 1e-6 of the float64 chain, and its double-word
+              results before rounding under 0.05x the float32 chain's
+              error; CUDA-event times of the chains single and at B = 32,
+              device ops a call, the batched island's peak memory at
+              B = 32 and 256; frames/s of 200 ticks of the circle with
+              each island, single and at B = 32, in turns ABBA; then,
+              while (h) runs, (f) the whole circle with the island, default
+              and fused, each beside the float64 island's driven run
+              (phases main and fused): error, overflow, launches and host
+              syncs equal to the float64 run's, the sync check; (g) the
+              batched circle at B = 32 with the island beside phase
+              batched's float64 run: every sequence under 0.2 m, 0 host
+              syncs, launches, peak memory; (h) the runner's classic
+              (10,798 ticks, mid noise, --gen_noise default) with the
+              island and the float64 island, in two processes at once
+              beside (f) and (g): no NaN, mean ATE
+              <= 10.5 m and final ATE <= 52.5 m, overflow 0, launches.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -124,6 +151,8 @@ The script imports nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -200,8 +229,11 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers", "images", "runner")
+          "solvers", "images", "runner", "island")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
+# ticks of the float64 card-vs-CPU parity runs (phases parity and solvers;
+# 600 until the island phase joined the script, cut to keep it in its time)
+PARITY_TICKS = 150
 DEVICE = "cuda"
 
 
@@ -249,6 +281,9 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+WINDOWS = 6  # profiler windows kernel_only_ms may take for one reading
+
+
 def kernel_only_ms(torch, fn, match=None, reps: int = 20):
     """Mean device time per call of the CUDA kernels whose name contains
     ``match`` (a string, or a tuple of strings for a call of several
@@ -257,13 +292,14 @@ def kernel_only_ms(torch, fn, match=None, reps: int = 20):
     over the records the profiler kept (it now and then drops a window's
     first one) times its launches a call, k, which its record count must
     show: k * reps, or one less. A window that shows neither is taken
-    again, up to three times."""
+    again, up to six times (with three, a call has failed when a window of
+    the triage kernel lost two records three times running)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     matches = (match,) if isinstance(match, str) else match
     fn()
-    for _ in range(3):
+    for _ in range(WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -280,7 +316,7 @@ def kernel_only_ms(torch, fn, match=None, reps: int = 20):
             total_us += e.device_time_total / e.count * k
         if not odd:
             return total_us / 1e3 if total_us > 0 else None
-    raise SmokeFailure(f"profiler: {', '.join(odd)} in {reps} calls, three windows running")
+    raise SmokeFailure(f"profiler: {', '.join(odd)} in {reps} calls, {WINDOWS} windows running")
 
 
 def _fmt_ms(x) -> str:
@@ -1252,7 +1288,7 @@ def predicted_launches(K, cfg, stats, C: int, B: int, Bp: int) -> dict:
 def phase_parity(torch, pkg, K, seq, label, **overrides):
     cfg = pkg.reference_experiment_config(dtype="float64", f_max=512, u_max=64, k_max=512,
                                           **overrides)
-    T = 600
+    T = PARITY_TICKS
     res = {}
     for dev in (DEVICE, "cpu"):
         _, run = _run(torch, pkg, cfg, seq, dev, T)
@@ -1384,6 +1420,7 @@ def phase_main(torch, pkg, K, seq):
           and cfg.use_pallas_triage and cfg.update_kernel == "hybrid"
           and cfg.gating_solver == "auto", "main: not the default configuration")
     run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, "main")
+    driven_stats = copy.copy(stats)  # the run closure keeps counting into stats
     syncs, frames = stats.host_syncs, stats.frames
     sites = sync_check(torch, run, stats, "main")
     log(f"main: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
@@ -1391,7 +1428,7 @@ def phase_main(torch, pkg, K, seq):
         f"warnings over one run: {sum(sites.values())}, by site {sites}")
     std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * 20)
     profile_window(torch, prof_run, std.frames["imu_ts"].shape[0], "main")
-    return run, C, launches, first_s
+    return run, C, launches, first_s, driven_stats
 
 
 def phase_driven(torch, pkg, K, seq, label, profile=False, **overrides):
@@ -1399,6 +1436,7 @@ def phase_driven(torch, pkg, K, seq, label, profile=False, **overrides):
     and the sync check; with ``profile``, a 20-frame profile."""
     cfg = pkg.reference_experiment_config(**overrides)
     run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, label)
+    driven_stats = copy.copy(stats)  # the run closure keeps counting into stats
     syncs, frames = stats.host_syncs, stats.frames
     sites = sync_check(torch, run, stats, label)
     log(f"{label}: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
@@ -1407,7 +1445,7 @@ def phase_driven(torch, pkg, K, seq, label, profile=False, **overrides):
     if profile:
         std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * 20)
         profile_window(torch, prof_run, std.frames["imu_ts"].shape[0], label)
-    return run, C, launches, first_s
+    return run, C, launches, first_s, driven_stats
 
 
 def compare_rates(torch, kernel_rows, driven: dict):
@@ -1415,7 +1453,7 @@ def compare_rates(torch, kernel_rows, driven: dict):
     each: the driven run (in the order the phases ran), then one more in
     reverse order (CBA) within this call; the kernels' share of the frame
     time from launches x kernel call time."""
-    runs = {name: run for name, (run, _, _, _) in driven.items()}
+    runs = {name: run for name, (run, *_) in driven.items()}
     C = next(iter(driven.values()))[1]
     names = list(runs)
     times = timed_runs(torch, runs, names[::-1])
@@ -1451,13 +1489,13 @@ def _seq(out, b):
 
 
 def phase_parity_batched(torch, pkg, K):
-    """batched_run_sequence over two seeds, 600 ticks in float64 at the
+    """batched_run_sequence over two seeds, PARITY_TICKS in float64 at the
     parity capacities, on the card and on the CPU, default dispatch: the
     checks of phase_parity for each sequence."""
     from msckf_tpu_torch.data.stream import to_device
 
     cfg = pkg.reference_experiment_config(dtype="float64", f_max=512, u_max=64, k_max=512)
-    T, seeds = 600, (0, 1)
+    T, seeds = PARITY_TICKS, (0, 1)
     st = pkg.circle_streams(cfg, seeds, max_ticks=T)
     res = {}
     for dev in (DEVICE, "cpu"):
@@ -1525,7 +1563,9 @@ def predicted_batched_launches(K, cfg, C: int, B: int, Bp: int) -> dict:
 def phase_batched(torch, pkg, K, seq, single=None):
     """BATCH seeds of the circle through batched_run_sequence at the
     reference capacities in float32. ``single``: the main phase's driven
-    run and its frame count, timed in turns with the batched loop."""
+    run, its frame count and seconds, beside which the batched driven run's
+    aggregate frames/s is given. Returns the launches and the default
+    batched run's (frames, seconds)."""
     from msckf_tpu_torch.data.stream import to_device
 
     gt = seq.poses_t[len(seq.timestamps) - 1]  # the same trajectory for every seed
@@ -1601,29 +1641,27 @@ def phase_batched(torch, pkg, K, seq, single=None):
         f"PyTorch sync-debug warnings {sum(sites.values())}, by site {sites}")
 
     if single is not None:
-        run_s, C_s, single_first = single
+        _, C_s, ts = single
         check(C_s == C, "batched: the single and batched circles differ in frames")
-        times = timed_runs(torch, {"batched": run_b, "single": run_s}, ["single", "batched"])
-        times["batched"].insert(0, first_s)
-        tb, ts = float(np.median(times["batched"])), float(np.median(times["single"]))
+        tb = first_s
         log(f"rates: batched B={BATCH}: {BATCH * C / tb:.1f} aggregate frames/s, "
-            f"{tb / C * 1e3:.3f} ms per frame of the batch (median of runs "
-            f"{[round(x, 4) for x in times['batched']]} s); single default loop in the same "
-            f"turns: {C / ts:.2f} frames/s, {ts / C * 1e3:.3f} ms/frame (runs "
-            f"{[round(x, 4) for x in times['single']]} s); batched frame / single frame "
-            f"{tb / ts:.3f}, aggregate / single frames/s {BATCH * ts / tb:.3f} (turns: "
-            f"driven batched run, then single, batched)")
+            f"{tb / C * 1e3:.3f} ms per frame of the batch; single default loop: "
+            f"{C / ts:.2f} frames/s, {ts / C * 1e3:.3f} ms/frame; batched frame / single frame "
+            f"{tb / ts:.3f}, aggregate / single frames/s {BATCH * ts / tb:.3f} (the driven "
+            f"runs of both)")
     for label, cfg in (("batched", base), ("batched fused", fused_cfg)):
         _, prof_run = make_run(cfg, 20 + 10 * 20)
         profile_window(torch, prof_run, 20, label)
-    return launches
+    return launches, (C, first_s)
 
 
 # ---------------------------------------------------------------------------
 # phase 9: the gain solvers, the Gauss-Newton triangulation, the XLA-only forms
 # ---------------------------------------------------------------------------
 
-SOLVER_TICKS = 400  # the use_pallas=False run, the sync checks and the batched chain
+# the use_pallas=False run, the sync checks and the batched chain (400
+# until the island phase joined the script)
+SOLVER_TICKS = 200
 
 
 def _filter_system(rng, D, gain_scale):
@@ -1828,14 +1866,13 @@ def batched_float32_chain(torch, pkg, K):
         f"{np.array2string(gap, precision=2, max_line_width=400)}; max {gap.max():.3e}")
 
 
-def phase_solvers(torch, pkg, K, seq, default_run=None):
+def phase_solvers(torch, pkg, K, seq):
     """The settings of the gain-solver slice on the card: the solves checked
     and timed at D = 207; the whole circle with gain_solver "ns", "chol" and
     triangulation "gn", and SOLVER_TICKS ticks with use_pallas=False, each
     with its error, overflow, launch and sync checks (no triage kernel under
     gn, no kernel at all with use_pallas=False); frames/s of the three
-    whole-circle configurations and of the default loop, two runs each in
-    turns; the batched float32
+    whole-circle configurations from their driven runs; the batched float32
     chain with batched_solver "ns" and "lu"; float64 card-vs-CPU parity of
     the four."""
     rng = np.random.default_rng(9)
@@ -1844,21 +1881,20 @@ def phase_solvers(torch, pkg, K, seq, default_run=None):
         check_solves(torch, dtype_name, rng, D)
     time_solvers(torch, pkg, rng)
 
-    driven = {}
     for label, overrides in (("ns", dict(gain_solver="ns")), ("chol", dict(gain_solver="chol")),
                              ("gn", dict(triangulation="gn"))):
         cfg = pkg.reference_experiment_config(**overrides)
-        run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, f"solvers {label}")
+        _, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, f"solvers {label}")
         if label == "gn":
             check(launches["triage_refresh_fused"] == 0, "solvers gn: the triage kernel ran")
         sstats = pkg.FrameStats()
         _, srun = _run(torch, pkg, cfg, seq, DEVICE, SOLVER_TICKS, sstats)
         sites = sync_check(torch, srun, sstats, f"solvers {label}")
+        log(f"rates: solvers {label} driven run {_rate(C, [first_s])}")
         log(f"solvers {label}: first run {first_s:.3f} s; host syncs per frame "
             f"{stats.host_syncs / stats.frames:.3f} ({stats.host_syncs} over {stats.frames} "
             f"frames); sync check over {SOLVER_TICKS} ticks: PyTorch sync-debug warnings "
             f"{sum(sites.values())}, by site {sites} (the port's equal the loop's count)")
-        driven[label] = (run, C)
 
     cfg = pkg.reference_experiment_config(use_pallas=False)
     run, stats, launches, _, seconds = drive(torch, pkg, K, seq, cfg, "solvers xla-only",
@@ -1868,21 +1904,6 @@ def phase_solvers(torch, pkg, K, seq, default_run=None):
     log(f"solvers xla-only: {SOLVER_TICKS} ticks in {seconds:.3f} s "
         f"({stats.frames / seconds:.2f} frames/s), no kernel launched; PyTorch sync-debug "
         f"warnings {sum(sites.values())}, by site {sites}")
-
-    if default_run is None:
-        _, default_run = _run(torch, pkg, pkg.reference_experiment_config(), seq, DEVICE)
-    # the driven runs paid each configuration's first-call costs, so the
-    # rates come from two runs each in turns after them
-    runs = {"default": default_run, **{k: v[0] for k, v in driven.items()}}
-    names = ["default", "ns", "chol", "gn"]
-    times = timed_runs(torch, runs, names + names[::-1])
-    C = next(iter(driven.values()))[1]
-    med = {name: float(np.median(times[name])) for name in names}
-    for name in names:
-        log(f"rates: solvers {name} {_rate(C, times[name])}")
-    log(f"rates: solvers frames/s ratios "
-        + ", ".join(f"{n} / default {med['default'] / med[n]:.3f}" for n in names[1:])
-        + " (two runs each after the driven runs, in turns ABCDDCBA)")
 
     batched_float32_chain(torch, pkg, K)
 
@@ -2127,8 +2148,10 @@ def phase_images(torch, pkg, K, default=None):
 
 RUNNER_TICKS = 2400  # the whole synthetic circle, the runner's default
 RUNNER_CHUNKS = (16, 64)
-RUNNER_BATCH_TICKS = 600
-RENDERED_TICKS = 800  # 78 frames of the runner's 320 x 240 rendered circle
+# the batch and the rendered runs were cut from 600 and 800 ticks when the
+# island phase joined the script, to keep it in its time
+RUNNER_BATCH_TICKS = 300
+RENDERED_TICKS = 400  # 38 frames of the runner's 320 x 240 rendered circle
 
 
 def runner_call(torch, K, argv):
@@ -2360,6 +2383,614 @@ def phase_runner(torch, pkg, K):
                 f"{time.perf_counter() - t0:.1f} s (rendering on the host included)")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the compensated correction island
+# ---------------------------------------------------------------------------
+
+ISLAND_PAIRS = 10**6  # two_sum / two_prod pairs of check (a)
+ISLAND_CAPTURE_TICKS = 400  # the circle run whose updates check (e) replays
+ISLAND_MIN_UPDATES = 10
+# ticks of the runs timed in turns, float64 and compensated island, single
+# and batched (turns ABBA after the driven runs)
+ISLAND_RATE_TICKS = 200
+# a larger batch of the captured updates, for the batched island's peak
+# memory a sequence
+ISLAND_BIG_BATCH = 256
+# the runner's classic in the JAX package's probe settings
+# (scripts/classic_tpu_probe.py); the limits on its mean and final ATE are
+# twice the CPU float64 island's row of docs/RESULTS.md (mid noise: 5.270 m
+# and 26.247 m)
+CLASSIC_ARGS = ["--source", "synthetic", "--sequence", "classic", "--noise_level", "mid",
+                "--gen_noise", "default", "--max_frames", "30000"]
+CLASSIC_TICKS = 10798
+CLASSIC_LIMITS = (10.5, 52.5)
+
+
+def _df64(r):
+    """hi + lo of a DF pair, in float64 where it lies."""
+    return r.hi.double() + r.lo.double()
+
+
+def island_arithmetic(torch, dw, rng):
+    """(a) two_sum and two_prod exact on ISLAND_PAIRS pairs whose magnitudes
+    span 1e-12 to 1e12 (their products stay clear of underflow, where
+    Dekker's split is no longer exact): hi + lo in float64 on the card equals
+    the float64 sum and product; (b, first half) _exact_pow2 exact over
+    [-126, 127], _floor_log2 exact at and just below every power of two."""
+    n = ISLAND_PAIRS
+    a, b = ((rng.standard_normal(n) * 10.0 ** rng.integers(-12, 13, n)).astype(np.float32)
+            for _ in range(2))
+    ta, tb = (torch.as_tensor(x, device=DEVICE) for x in (a, b))
+    check(torch.equal(_df64(dw.two_sum(ta, tb)), ta.double() + tb.double()),
+          "island (a): two_sum is not exact on the card")
+    check(torch.equal(_df64(dw.two_prod(ta, tb)), ta.double() * tb.double()),
+          "island (a): two_prod is not exact on the card")
+    e = torch.arange(-126, 128, dtype=torch.int32, device=DEVICE)
+    want = 2.0 ** np.arange(-126, 128.0)
+    check(np.array_equal(dw._exact_pow2(e).double().cpu().numpy(), want),
+          "island (b): _exact_pow2 is not exact on the card")
+    m = torch.as_tensor(want, dtype=torch.float32, device=DEVICE)
+    below = torch.nextafter(m[1:], torch.zeros_like(m[1:]))
+    check(np.array_equal(dw._floor_log2(m).cpu().numpy(), np.arange(-126, 128))
+          and np.array_equal(dw._floor_log2(below).cpu().numpy(), np.arange(-126, 127)),
+          "island (b): _floor_log2 is not exact on the card")
+    log(f"island (a): two_sum and two_prod exact against float64 on the card over {n:,} "
+        f"pairs (magnitudes 1e-12 to 1e12); (b) _exact_pow2 exact over [-126, 127], "
+        f"_floor_log2 exact at and below each power of two")
+
+
+def capture_updates(torch, pkg, seq):
+    """The default configuration with the island over ISLAND_CAPTURE_TICKS
+    ticks of the circle on the card, recording (P, A, c) at each island call
+    (copies on the card, read after the run); the calls with A != 0."""
+    import msckf_tpu_torch.filter.update as up
+
+    cfg = pkg.reference_experiment_config(correction_dtype="compensated")
+    _, run = _run(torch, pkg, cfg, seq, DEVICE, ISLAND_CAPTURE_TICKS)
+    calls = []
+    island = up._correction_terms_compensated
+    up._correction_terms_compensated = lambda c, P, A, cc: (
+        calls.append((P.clone(), A.clone(), cc.clone())), island(c, P, A, cc))[1]
+    try:
+        run()
+    finally:
+        up._correction_terms_compensated = island
+    torch.cuda.synchronize()
+    # P and A symmetric to the last bit: the float64 chain forms
+    # B^T = sigma^2 I + P A and the island B = sigma^2 I + A P, equal only
+    # then (the loop's A and P carry float32 asymmetry of ~1e-8, which would
+    # otherwise floor check (e) there)
+    updates = [(0.5 * (P + P.mT), 0.5 * (A + A.mT), c) for P, A, c in calls
+               if bool(torch.any(A != 0))]
+    check(len(updates) >= ISLAND_MIN_UPDATES,
+          f"island (e): {len(updates)} real updates captured, fewer than {ISLAND_MIN_UPDATES}")
+    log(f"island: {len(calls)} island calls over {ISLAND_CAPTURE_TICKS} ticks of the circle on "
+        f"the card, {len(updates)} with a real update (A != 0) kept for checks (b), (c), (e)")
+    return updates
+
+
+def island_slices(torch, dw, pkg, update):
+    """(b, second half) every Ozaki slicing of one island call on a captured
+    update (D = 207): its input |xn| < 2, and each slice on its level's grid
+    step_l = 2^(-6-8l), with at most 8 significant bits, exact in bfloat16."""
+    from msckf_tpu_torch.filter.update import _correction_terms_compensated
+
+    cfg = pkg.reference_experiment_config(correction_dtype="compensated")
+    seen = []
+    slices8 = dw._slices8
+    dw._slices8 = lambda xn, lo=None, levels=6: (
+        lambda out: (seen.append((xn, out)), out)[1])(slices8(xn, lo, levels))
+    try:
+        _correction_terms_compensated(cfg, *update)
+    finally:
+        dw._slices8 = slices8
+    worst_in = 0.0
+    for xn, out in seen:
+        worst_in = max(worst_in, float(xn.abs().max()))
+        for lvl, s in enumerate(out):
+            q = s / 2.0 ** (-6 - 8 * lvl)  # exact: a power of two
+            check(torch.equal(q, torch.round(q)), f"island (b): a level-{lvl} slice is off "
+                                                   f"its grid")
+            check(float(q.abs().max()) <= 256, f"island (b): a level-{lvl} slice holds more "
+                                               f"than 8 significant bits")
+            check(torch.equal(s.to(torch.bfloat16).float(), s),
+                  f"island (b): a level-{lvl} slice is not exact in bfloat16")
+    check(worst_in < 2.0, f"island (b): a normalized operand reaches |xn| = {worst_in}")
+    log(f"island (b): {len(seen)} slicings ({len(seen) * len(seen[0][1])} slices) of one "
+        f"island call at D = {cfg.err_dim}: every slice on its grid, at most 8 bits, exact in "
+        f"bfloat16; largest normalized input |xn| {worst_in!r} (< 2)")
+
+
+def island_products(torch, dw, rng, update):
+    """(c) ozaki_matmul and df_matmul on the card within the JAX tests'
+    bounds of a float64 product taken on the card, and the card's hi + lo
+    within 1e-11 of rowmax(A) * colmax(B) of the port's CPU result."""
+
+    def dev(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=DEVICE)
+
+    A = rng.standard_normal((207, 207)).astype(np.float32)
+    B = rng.standard_normal((207, 207)).astype(np.float32)
+    d1, d2 = 10.0 ** rng.uniform(-6, 0, 207), 10.0 ** rng.uniform(-6, 0, 207)
+    A64, B64 = rng.standard_normal((200, 200)), rng.standard_normal((200, 200))
+    G = rng.standard_normal((100, 100))
+    H = rng.standard_normal((40, 100))
+    H[:, :15] = 0.0
+    P_f, A_f = update[0].cpu().numpy(), update[1].cpu().numpy()
+    cases = [  # name, A, B, A_lo, B_lo, bound against float64
+        ("ozaki 207 x 207", A, B, None, None, 1e-12),
+        ("ozaki 207 scaled rows / columns", A * d1[:, None], B * d2[None, :], None, None, 1e-12),
+        ("ozaki 200 double-word", A64, B64, A64 - A64.astype(np.float32),
+         B64 - B64.astype(np.float32), 1e-12),
+        ("ozaki zero head vs 1e18", H.T @ H, (G @ G.T) * 1e18, None, None, 1e-10),
+        (f"ozaki filter A P (D = {A_f.shape[0]})", A_f, P_f, None, None, 1e-10),
+    ]
+    rows = []
+    for name, a, b, a_lo, b_lo, bound in cases:
+        a32, b32 = np.asarray(a, np.float32), np.asarray(b, np.float32)
+        lo = {k: v for k, v in (("A_lo", a_lo), ("B_lo", b_lo)) if v is not None}
+        got = dw.ozaki_matmul(dev(a32), dev(b32), **{k: dev(v) for k, v in lo.items()})
+        cpu = dw.ozaki_matmul(torch.as_tensor(a32), torch.as_tensor(b32),
+                              **{k: torch.as_tensor(np.asarray(v, np.float32))
+                                 for k, v in lo.items()})
+        rows.append((name, got, cpu, a32, b32, lo, bound))
+    C = rng.standard_normal((150, 150)).astype(np.float32)
+    D = rng.standard_normal((150, 150)).astype(np.float32)
+    rows.append(("df_matmul 150 x 150", dw.df_matmul(dev(C), dev(D)),
+                 dw.df_matmul(torch.as_tensor(C), torch.as_tensor(D)), C, D, {}, 1e-11))
+    for name, got, cpu, a32, b32, lo, bound in rows:
+        a64 = dev(a32).double() + (dev(lo["A_lo"]).double() if "A_lo" in lo else 0.0)
+        b64 = dev(b32).double() + (dev(lo["B_lo"]).double() if "B_lo" in lo else 0.0)
+        want = a64 @ b64
+        rel = float((_df64(got) - want).abs().max() / want.abs().max())
+        check(rel < bound, f"island (c): {name}: {rel:.2e} of float64 on the card, not under "
+                           f"{bound:.0e}")
+        # rowmax * colmax; a zero row (the zero head) must agree exactly
+        scale = (np.abs(a32).max(axis=1)[:, None] * np.abs(b32).max(axis=0)[None, :])
+        diff = np.abs(_df64(got).cpu().numpy() - _df64(cpu).numpy())
+        vs_cpu = float(np.where(scale > 0, diff / np.where(scale > 0, scale, 1.0),
+                                np.where(diff > 0, np.inf, 0.0)).max())
+        check(vs_cpu < 1e-11, f"island (c): {name}: card and CPU differ by {vs_cpu:.2e} of "
+                              f"rowmax * colmax")
+        extra = ""
+        if name.startswith("df_matmul"):
+            f32 = float((dev(a32) @ dev(b32)).double().sub(want).abs().max() / want.abs().max())
+            check(rel < 1e-4 * f32, f"island (c): {name}: not 1e4 x better than float32 "
+                                    f"({rel:.2e} vs {f32:.2e})")
+            extra = f", float32 matmul {f32:.2e}"
+        log(f"island (c): {name}: {rel:.2e} of the float64 product (bound {bound:.0e}){extra}; "
+            f"card vs CPU {vs_cpu:.2e} of rowmax * colmax")
+    try:
+        dw.ozaki_matmul(torch.zeros(4, 300, device=DEVICE), torch.zeros(300, 4, device=DEVICE))
+        check(False, "island (c): ozaki_matmul took K = 300")
+    except ValueError:
+        pass
+
+
+def island_solves(torch, dw, rng):
+    """(d) refined_solve "lu" and "ns" on the card under 1e-8 of a float64
+    solve on tests/test_compensated.py's two conditioning cases, and the
+    divergence safeguard at cond 1e8 to 1e12: finite, within 8x the plain
+    float32 LU's error."""
+    n = 100
+
+    def solve(Bd, C, solver, iters):
+        B32 = Bd.astype(np.float32)
+        B = dw.DF(torch.as_tensor(B32, device=DEVICE),
+                  torch.as_tensor((Bd - B32).astype(np.float32), device=DEVICE))
+        X = dw.refined_solve(B, torch.as_tensor(C, dtype=torch.float32, device=DEVICE),
+                             iters=iters, solver=solver)
+        return _df64(X).cpu().numpy()
+
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    d = 10.0 ** rng.uniform(-6, 0, n)
+    scaling = d[:, None] * ((Q * np.logspace(0, -2, n)) @ Q.T) * d[None, :]
+    Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    genuine = (Q * np.logspace(0, -4.5, n)) @ Q.T
+    out = []
+    for name, Bd in (("scaling", scaling), ("genuine", genuine)):
+        C = (Bd @ rng.standard_normal((n, 4))).astype(np.float32)
+        want = np.linalg.solve(Bd, C.astype(np.float64))
+        for solver in ("lu", "ns"):
+            rel = np.abs(solve(Bd, C, solver, 3) - want).max() / np.abs(want).max()
+            check(rel < 1e-8, f"island (d): refined_solve {solver} {name}: {rel:.2e} >= 1e-8")
+            out.append(f"{solver} {name} {rel:.2e}")
+    for cond in (1e8, 1e10, 1e12):
+        Q, _ = np.linalg.qr(rng.standard_normal((80, 80)))
+        Bd = (Q * np.logspace(0, np.log10(cond), 80)) @ Q.T
+        C = rng.standard_normal((80, 4))
+        want = np.linalg.solve(Bd, C)
+        got = solve(Bd, C, "lu", 5)
+        rel = np.abs(got - want).max() / np.abs(want).max()
+        x32 = np.linalg.solve(Bd.astype(np.float32), C.astype(np.float32))
+        rel32 = np.abs(x32 - want).max() / np.abs(want).max()
+        check(np.isfinite(got).all() and rel < 8.0 * max(rel32, 1e-7),
+              f"island (d): safeguard at cond {cond:.0e}: {rel:.2e} against float32's "
+              f"{rel32:.2e}")
+        out.append(f"safeguard cond {cond:.0e} {rel:.2e} (float32 LU {rel32:.2e})")
+    log("island (d): refined_solve on the card, relative error against float64: "
+        + "; ".join(out))
+
+
+def island_chain(torch, pkg, updates):
+    """(e) the island on each captured update against the float64 and the
+    plain float32 chains on the card (the float64 one in float64 throughout,
+    with the float32 sigma^2 both others use). Its outputs, rounded to float32 as the
+    filter takes them, within 1e-6 of the float64 chain's scale at worst
+    over the updates. Before that rounding, its double-word results
+    (``_compensated_chain``) against the float64 chain in float64 at worst
+    under 0.05x the plain float32 chain's worst: rounded, both sides floor
+    at one float32 ulp (up to 1.2e-7 of the scale), which on well
+    conditioned updates is the float32 chain's own error. Then CUDA-event
+    times of the chains, single (island_solver "lu") and under vmap at
+    B = BATCH ("ns", as the batched dispatch sets it), the island's device
+    ops a call, and the peak device memory of the batched island call at
+    B = BATCH and B = ISLAND_BIG_BATCH."""
+    import dataclasses
+
+    from msckf_tpu_torch.filter.update import (
+        _compensated_chain, _correction_terms, _correction_terms_compensated,
+    )
+
+    cfg = pkg.reference_experiment_config(correction_dtype="compensated")
+    cfg64 = dataclasses.replace(cfg, correction_dtype="float64")
+    cfg32 = dataclasses.replace(cfg, correction_dtype="float32")
+    # the yardstick: the float64 chain in float64 throughout, on the same
+    # float32 inputs and with the float32 sigma^2 that the island and the
+    # float32 chain use (the float64 chain's own sigma^2 differs from it by
+    # 3e-8, which would otherwise floor the comparison there)
+    s2 = float(np.float32(cfg.sigma_image**2))
+    f64 = dataclasses.replace(cfg, dtype="float64", correction_dtype="float64",
+                              sigma_image=float(np.sqrt(s2)))
+    check(abs(f64.sigma_image**2 - s2) <= 1e-15 * s2, "island (e): sigma^2 not float32's")
+    worst = {}
+    ratios = []
+    for P, A, c in updates:
+        d64, P64 = _correction_terms(f64, P.double(), A.double(), c.double())
+        dd, Pd = _compensated_chain(cfg, P, A, c)
+        outs = {"island": _correction_terms_compensated(cfg, P, A, c),
+                "island unrounded": (_df64(dd), _df64(Pd)),
+                "float32": _correction_terms(cfg32, P, A, c)}
+        errs = {}
+        for kind, (d, Pn) in outs.items():
+            errs[f"{kind} delta"] = float((d.double() - d64).abs().max() / d64.abs().max())
+            errs[f"{kind} P"] = float((Pn.double() - P64).abs().max() / P64.abs().max())
+        for k, v in errs.items():
+            check(np.isfinite(v), f"island (e): {k} error not finite")
+            worst[k] = max(worst.get(k, 0.0), v)
+        ratios.append(max(errs["island delta"] / max(errs["float32 delta"], 1e-30),
+                          errs["island P"] / max(errs["float32 P"], 1e-30)))
+    for q in ("delta", "P"):
+        check(worst[f"island {q}"] < 1e-6, f"island (e): {q} {worst[f'island {q}']:.2e} of the "
+                                           f"float64 chain, not under 1e-6")
+        check(worst[f"island unrounded {q}"] < 0.05 * worst[f"float32 {q}"],
+              f"island (e): {q}: the island's worst {worst[f'island unrounded {q}']:.2e} before "
+              f"rounding is not under 0.05x the float32 chain's {worst[f'float32 {q}']:.2e}")
+    log(f"island (e): {len(updates)} real updates of the circle, D = {cfg.err_dim}, worst "
+        f"relative error against the float64 chain: island delta "
+        f"{worst['island delta']:.2e}, P {worst['island P']:.2e} (rounded to float32), "
+        f"{worst['island unrounded delta']:.2e} and {worst['island unrounded P']:.2e} "
+        f"(double-word, before rounding); plain float32 delta {worst['float32 delta']:.2e}, "
+        f"P {worst['float32 P']:.2e}; per update, rounded island / float32: median "
+        f"{np.median(ratios):.3f}, max {max(ratios):.3f}")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    P, A, c = updates[-1]
+    chains = {
+        "island": lambda: _correction_terms_compensated(cfg, P, A, c),
+        "float64 chain": lambda: _correction_terms(cfg64, P, A, c),
+        "float32 chain": lambda: _correction_terms(cfg32, P, A, c),
+    }
+    ops = {}
+    for name, fn in chains.items():
+        fn()
+        torch.cuda.synchronize()
+        # device ops a call, over five calls (with device activity alone,
+        # the window of a ~1 ms chain came back short or empty)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        ops[name] = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA) / 5
+    # the batch: BATCH captured updates (repeated in order if fewer)
+    idx = [i % len(updates) for i in range(BATCH)]
+    Pb, Ab, cb = (torch.stack([updates[i][j] for i in idx]) for j in range(3))
+    cfg_ns = dataclasses.replace(cfg, island_solver="ns")
+    batched = {
+        "island": torch.func.vmap(lambda p, a, cc: _correction_terms_compensated(cfg_ns, p, a, cc)),
+        "float64 chain": torch.func.vmap(lambda p, a, cc: _correction_terms(cfg64, p, a, cc)),
+    }
+    vm = batched["island"](Pb, Ab, cb)
+    for b in range(BATCH):
+        d64, _ = _correction_terms(cfg64, *updates[idx[b]])
+        rel = float((vm[0][b].double() - d64.double()).abs().max() / d64.double().abs().max())
+        check(rel < 1e-6, f"island (e): batched island (ns) delta of system {b}: {rel:.2e}")
+    peaks = {}
+    for nb in (BATCH, ISLAND_BIG_BATCH):
+        big = [i % len(updates) for i in range(nb)]
+        args = [torch.stack([updates[i][j] for i in big]) for j in range(3)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        batched["island"](*args)
+        torch.cuda.synchronize()
+        peaks[nb] = torch.cuda.max_memory_allocated() - start
+        del args
+    for name, fn in chains.items():
+        one = time_ms(torch, fn, reps=15)
+        many = time_ms(torch, lambda: batched[name](Pb, Ab, cb), reps=5) if name in batched else None
+        log(f"island time: {name:14s} single {one:.3f} ms"
+            + (f", B={BATCH} under vmap {many:.3f} ms ({many / BATCH:.3f} ms a system)"
+               if many is not None else "")
+            + f"; {ops[name]:.0f} device ops a single call")
+    slope = (peaks[ISLAND_BIG_BATCH] - peaks[BATCH]) / (ISLAND_BIG_BATCH - BATCH)
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"island memory: the batched island call (island_solver 'ns') peaks "
+        f"{peaks[BATCH] / 2**20:.1f} MiB above its inputs at B={BATCH}, "
+        f"{peaks[ISLAND_BIG_BATCH] / 2**20:.1f} MiB at B={ISLAND_BIG_BATCH}: "
+        f"{slope / 2**20:.2f} MiB a sequence, the card's {total / 2**30:.1f} GiB at about "
+        f"B={int(total / slope)}")
+
+
+def log_turns(torch, label, runs):
+    """Frames/s of the float64 and the compensated island's runs, taken in
+    turns ABBA (``runs`` maps each to (run, frames): the camera frames of
+    one sequence, or of every sequence of a batch)."""
+    times = timed_runs(torch, {k: v[0] for k, v in runs.items()},
+                       ["float64", "compensated", "compensated", "float64"])
+    for name, (_, frames) in runs.items():
+        log(f"rates: {label} {name} in turns {_rate(frames, times[name])}")
+    t64, tc = (float(np.median(times[k])) for k in ("float64", "compensated"))
+    log(f"rates: {label} compensated / float64 frames/s {t64 / tc:.3f} ({ISLAND_RATE_TICKS} "
+        f"ticks each, in turns ABBA)")
+
+
+def island_circle(torch, pkg, K, seq, driven=None):
+    """(f) the whole circle on the single loop with the island, in the
+    default configuration and with update_kernel="fused", each beside the
+    float64 island's driven run (phases main and fused, when they ran in
+    this call, else driven here first): error, overflow and launches
+    (drive), the same launches and host syncs as the float64 run; the sync
+    check of the default island. The runs share the card with the classic
+    runs of check (h), so their seconds are no rate of record."""
+    import dataclasses
+
+    driven = driven or {}
+    for label, overrides in (("default", {}), ("fused", {"update_kernel": "fused"})):
+        f64 = pkg.reference_experiment_config(**overrides)
+        comp = dataclasses.replace(f64, correction_dtype="compensated")
+        if label in driven:
+            _, _, l64, _, s64 = driven[label]
+        else:
+            _, s64, l64, _, _ = drive(torch, pkg, K, seq, f64, f"island {label} float64")
+        _, sc, lc, _, _ = drive(torch, pkg, K, seq, comp, f"island {label} compensated")
+        check(lc == l64, f"island (f) {label}: launches {lc} differ from the float64 island's "
+                         f"{l64}")
+        check(sc.host_syncs == s64.host_syncs and sc.frames == s64.frames,
+              f"island (f) {label}: {sc.host_syncs} host syncs over {sc.frames} frames against "
+              f"the float64 island's {s64.host_syncs} over {s64.frames}")
+        log(f"island (f) {label}: launches and host syncs equal to the float64 island's "
+            f"({sc.host_syncs / sc.frames:.3f} a frame)")
+        if label == "default":
+            sstats = pkg.FrameStats()
+            _, srun = _run(torch, pkg, comp, seq, DEVICE, SOLVER_TICKS, sstats)
+            sites = sync_check(torch, srun, sstats, "island default compensated")
+            log(f"island (f) default: sync check over {SOLVER_TICKS} ticks: PyTorch sync-debug "
+                f"warnings {sum(sites.values())}, by site {sites} (the port's equal the loop's "
+                f"count)")
+
+
+def island_single_turns(torch, pkg, seq):
+    """Frames/s of the single default loop with the float64 and the
+    compensated island, ISLAND_RATE_TICKS ticks of the circle each in turns
+    ABBA."""
+    import dataclasses
+
+    f64 = pkg.reference_experiment_config()
+    runs = {}
+    for name, cfg in (("float64", f64),
+                      ("compensated", dataclasses.replace(f64, correction_dtype="compensated"))):
+        std, run = _run(torch, pkg, cfg, seq, DEVICE, ISLAND_RATE_TICKS)
+        runs[name] = (run, std.frames["imu_ts"].shape[0])
+    log_turns(torch, "island single", runs)
+
+
+def island_batched_turns(torch, pkg):
+    """Aggregate frames/s of BATCH seeds on the batched loop with the
+    float64 and the compensated island, ISLAND_RATE_TICKS ticks each in
+    turns ABBA."""
+    import dataclasses
+
+    from msckf_tpu_torch.data.stream import to_device
+
+    base = pkg.reference_experiment_config()
+    std = to_device(pkg.circle_streams(base, range(BATCH), max_ticks=ISLAND_RATE_TICKS), base,
+                    DEVICE)
+    runs = {}
+    for kind in ("float64", "compensated"):
+        cfg = dataclasses.replace(base, correction_dtype=kind)
+        states = pkg.batched_initial_state(cfg, BATCH, std.R_init, device=DEVICE)
+        runs[kind] = (lambda cfg=cfg, states=states: pkg.batched_run_sequence(
+            cfg, states, std.prefix, std.frames, assume_camera=True, device=DEVICE),
+            BATCH * std.frames["imu_ts"].shape[1])
+    log_turns(torch, f"island batched B={BATCH} aggregate", runs)
+
+
+def island_batched(torch, pkg, K, f64=None):
+    """(g) BATCH seeds of the whole circle on the batched loop with the
+    island (default dispatch: island_solver "ns"): every sequence under
+    0.2 m, no overflow, one launch per call site and frame, no functorch
+    fallback, 0 host syncs, its peak device memory. The float64 island's
+    run is phase batched's when it ran in this call (``f64`` = (frames,
+    seconds)), else run here first. The runs share the card with the
+    classic runs of check (h), so their seconds are no rate of record."""
+    import dataclasses
+
+    from msckf_tpu_torch.data.stream import to_device
+    from msckf_tpu_torch.data.synthetic import generate_circle_sequence
+
+    gt = generate_circle_sequence(rng=np.random.default_rng(0)).poses_t[-1]
+    base = pkg.reference_experiment_config()
+    std = to_device(pkg.circle_streams(base, range(BATCH)), base, DEVICE)
+    C, Bt = std.frames["imu_ts"].shape[1:3]
+    Bp = std.prefix["imu_ts"].shape[1]
+    seconds = {}
+    if f64 is not None:
+        check(f64[0] == C, "island (g): the batched phase's circle differs in frames")
+        seconds["float64"] = f64[1]
+    for kind in ("float64", "compensated"):
+        if kind in seconds:
+            continue
+        cfg = dataclasses.replace(base, correction_dtype=kind)
+        label = f"island batched {kind}"
+        states = pkg.batched_initial_state(cfg, BATCH, std.R_init, device=DEVICE)
+        stats = pkg.FrameStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        K.reset_launches()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message=".*batching rule.*")
+            t0 = time.perf_counter()
+            final, _, _ = pkg.batched_run_sequence(cfg, states, std.prefix, std.frames,
+                                                   assume_camera=True, device=DEVICE,
+                                                   stats=stats)
+            torch.cuda.synchronize()
+            seconds[kind] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - start
+        launches = K.launch_counts()
+        err = np.linalg.norm(final.imu.p_WI.double().cpu().numpy() - gt, axis=-1)
+        check(np.isfinite(err).all() and (err < 0.2).all(),
+              f"{label}: final position errors {np.round(err, 4).tolist()} m, not all under 0.2 m")
+        overflow = (final.diag.n_track_overflow + final.diag.n_update_overflow).cpu().numpy()
+        check(not overflow.any(), f"{label}: capacity overflow {overflow.tolist()}")
+        check(stats.host_syncs == 0, f"{label}: {stats.host_syncs} host syncs")
+        dcfg = pkg.batched_dispatch(cfg)
+        predicted = predicted_batched_launches(K, dcfg, C, Bt, Bp)
+        for k, v in launches.items():
+            check(v == predicted[k], f"{label}: {k} launched {v} times, one per call site and "
+                                     f"frame predicts {predicted[k]}")
+        log(f"{label}: B={BATCH} x {C} frames, island_solver={dcfg.island_solver!r}; final "
+            f"errors {err.min():.4f} to {err.max():.4f} m (median {np.median(err):.4f}), "
+            f"overflow 0, 0 host syncs, launches = one per call site and frame; "
+            f"{seconds[kind]:.3f} s beside the classic runs; peak device memory "
+            f"{peak / 2**20:.1f} MiB above the streams")
+
+
+# one runner call in its own process, printing its numbers as the last line
+_RUNNER_CHILD = """
+import json, sys
+import numpy as np
+import chip_smoke as cs
+from msckf_tpu_torch import runner
+from msckf_tpu_torch.ops import kernels as K
+m = runner.main(sys.argv[1:])
+ate = np.linalg.norm(m.ate, axis=1)
+print(json.dumps({
+    "ticks": len(ate), "finite": bool(np.isfinite(m.ate).all() and np.isfinite(m.aoe).all()),
+    "mean_ate": float(ate.mean()), "final_ate": float(ate[-1]),
+    "median_rte_pct": float(np.median(m.rte) * 100), "diag": m.diag,
+    "launches": K.launch_counts(),
+    "predicted": cs.predicted_launches(K, m.cfg, m.stats, *m.blocks),
+    "blocks": list(m.blocks), "f_max": m.cfg.f_max, "u_max": m.cfg.u_max,
+    "prunes": int(m.stats.prunes), "syncs_per_frame": m.stats.host_syncs / m.stats.frames,
+    "consistency": m.consistency, "profiling": m.profiling,
+}, default=lambda x: x.item()))
+"""
+
+
+@contextlib.contextmanager
+def classic_runs():
+    """Start the runner's classic (CLASSIC_TICKS ticks, mid noise,
+    --gen_noise default) with the island and with the float64 island, in
+    two processes at once (the card is idle most of a frame), their output
+    to files. Yields ({kind: (process, stdout file, stderr file)}, start
+    time); kills what still runs on leaving."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp())
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        for kind in ("compensated", "float64"):
+            out, err = tmp / f"{kind}.out", tmp / f"{kind}.err"
+            with open(out, "w") as fo, open(err, "w") as fe:
+                procs[kind] = (subprocess.Popen(
+                    [sys.executable, "-c", _RUNNER_CHILD, *CLASSIC_ARGS, "--device", DEVICE,
+                     "--data_root", str(tmp), "--correction_dtype", kind],
+                    cwd=REPO, stdout=fo, stderr=fe, text=True), out, err)
+        yield procs, t0
+    finally:
+        for p, _, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def island_classic(procs, t0):
+    """(h) the two classic runs of ``classic_runs``: no NaN, mean and final
+    ATE within CLASSIC_LIMITS, no overflow, launches twice the loop's
+    prediction (warm-up and timed run)."""
+    for p, _, _ in procs.values():
+        p.wait(timeout=max(900 - (time.perf_counter() - t0), 1))
+    wall = time.perf_counter() - t0
+    for kind, (p, out, err) in procs.items():
+        label = f"island (h) classic {kind}"
+        check(p.returncode == 0, f"{label}: exit {p.returncode}: {err.read_text()[-2000:]}")
+        r = json.loads(out.read_text().strip().splitlines()[-1])
+        check(r["ticks"] == CLASSIC_TICKS, f"{label}: {r['ticks']} ticks, not {CLASSIC_TICKS}")
+        check(r["finite"], f"{label}: NaN or inf in the trajectory's errors")
+        check(r["mean_ate"] <= CLASSIC_LIMITS[0] and r["final_ate"] <= CLASSIC_LIMITS[1],
+              f"{label}: mean ATE {r['mean_ate']:.3f} m, final {r['final_ate']:.3f} m, over the "
+              f"limits {CLASSIC_LIMITS}")
+        overflow = r["diag"]["n_track_overflow"] + r["diag"]["n_update_overflow"]
+        check(overflow == 0, f"{label}: capacity overflow {overflow}")
+        for k, v in r["launches"].items():
+            check(v == 2 * r["predicted"][k], f"{label}: {k} launched {v} times, the loop "
+                                              f"predicts 2 x {r['predicted'][k]}")
+        c, prof = r["consistency"], r["profiling"]
+        log(f"{label}: {r['ticks']} ticks, {r['blocks'][0]} frames, f_max={r['f_max']} "
+            f"u_max={r['u_max']}; median RTE {r['median_rte_pct']:.3f} %, mean ATE "
+            f"{r['mean_ate']:.3f} m, final ATE {r['final_ate']:.3f} m (limits "
+            f"{CLASSIC_LIMITS}); ATE within 3-sigma {c['ate_within_3sigma']:.3f}, AOE "
+            f"{c['aoe_within_3sigma']:.3f}; overflow 0, {r['prunes']} prunes, host syncs per "
+            f"frame {r['syncs_per_frame']:.3f}; launches = 2 x predicted; warm-up "
+            f"{prof['warmup_s']} s, timed run {prof['sequence_s']:.3f} s "
+            f"({prof['camera_updates_per_s']} camera updates/s, beside the other run and "
+            f"checks (f) and (g))")
+    log(f"island (h): both classic runs in {wall:.1f} s, in two processes at once beside "
+        f"checks (f) and (g)")
+
+
+def phase_island(torch, pkg, K, seq, driven=None, batched_f64=None):
+    """The double-word correction island on the card: its arithmetic, the
+    slices, the products, the solves, the chain on real updates, the single
+    and the batched circle (beside the float64 island's driven runs of the
+    earlier phases where they ran), and the runner's classic."""
+    from msckf_tpu_torch.ops import compensated as dw
+
+    rng = np.random.default_rng(15)
+    island_arithmetic(torch, dw, rng)
+    updates = capture_updates(torch, pkg, seq)
+    island_slices(torch, dw, pkg, updates[-1])
+    island_products(torch, dw, rng, updates[-1])
+    island_solves(torch, dw, rng)
+    island_chain(torch, pkg, updates)
+    island_single_turns(torch, pkg, seq)
+    island_batched_turns(torch, pkg)
+    # the classic runs share the card with checks (f) and (g), whose times
+    # no rate reads
+    with classic_runs() as (procs, t0):
+        island_circle(torch, pkg, K, seq, driven)
+        island_batched(torch, pkg, K, batched_f64)
+        island_classic(procs, t0)
+
+
 def profile_window(torch, run, n_frames: int, label: str):
     """Device busy share and the largest device-time items over one run of
     ``n_frames`` camera frames (torch.profiler, device activity only: the
@@ -2492,20 +3123,24 @@ def main(argv=None) -> int:
         phase("xla")
         phase_xla(torch, pkg, K, seq)
     batched_launches = dict.fromkeys(K.LAUNCHES)
+    batched_f64 = None
     if "batched" in phases:
         check(kernel_rows is not None, "the batched phase needs the kernels phase")
         phase("batched")
-        single = driven["default"][:2] + driven["default"][3:] if "default" in driven else None
-        batched_launches = phase_batched(torch, pkg, K, seq, single)
+        single = driven["default"][:2] + driven["default"][3:4] if "default" in driven else None
+        batched_launches, batched_f64 = phase_batched(torch, pkg, K, seq, single)
     if "solvers" in phases:
         phase("solvers")
-        phase_solvers(torch, pkg, K, seq, driven["default"][0] if "default" in driven else None)
+        phase_solvers(torch, pkg, K, seq)
     if "images" in phases:
         phase("images")
         phase_images(torch, pkg, K, driven["default"][:2] if "default" in driven else None)
     if "runner" in phases:
         phase("runner")
         phase_runner(torch, pkg, K)
+    if "island" in phases:
+        phase("island")
+        phase_island(torch, pkg, K, seq, driven, batched_f64)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

@@ -96,7 +96,10 @@ class MSCKFConfig:
     # --- numerics ---
     dtype: str = "float32"
     # "float64": the EKF correction chain runs in float64 (a real f64
-    # island on the GPU); "float32": plain ``dtype``
+    # island on the GPU); "compensated": in double-word float32 for a
+    # float32 filter (ops/compensated.py), whose refinement solves by the
+    # LU for either island_solver (the JAX package's "ns" is a
+    # Newton-Schulz inverse); any other value: plain ``dtype``
     correction_dtype: str = "float64"
     island_solver: str = "lu"
 

@@ -7,8 +7,7 @@ Pi = I - H_f (H_f^T H_f)^+ H_f^T, and the Kalman update in information form
 from A = sum H~^T H~ and c = sum H~^T r~ over gated features plus one
 (D, D) solve.
 
-What the port takes: every setting of the JAX package but the compensated
-correction island (``correction_dtype="compensated"``, which raises). The
+What the port takes: every setting of the JAX package. The
 triage kernel (``use_pallas_triage=True``, the default) or the plain
 line-intersection triage, with ``triangulation="gn"`` the Gauss-Newton
 refinement of each valid track's inverse-depth point; the hybrid update
@@ -22,7 +21,10 @@ built in float32 with TF32 off, where the JAX package builds it at the
 TPU's bf16-input matmul precision); and the LU, Newton-Schulz
 (``gain_solver="ns"``) or Cholesky (``gain_solver="chol"``) gain solve with
 a float64 or plain correction chain, the batched float32 chain through
-``ops/solve.py::gain_solve``. ``use_pallas=False`` turns every kernel off,
+``ops/solve.py::gain_solve``, or the double-word correction island of a
+float32 filter (``correction_dtype="compensated"``,
+``_correction_terms_compensated`` over ``ops/compensated.py``).
+``use_pallas=False`` turns every kernel off,
 as the JAX package's master switch does.
 
 One repair against the JAX package: it masks the per-track factor W but not
@@ -38,13 +40,14 @@ from typing import NamedTuple
 
 import torch
 
-from msckf_tpu_torch.config import MSCKFConfig, unsupported
+from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.state import (
     OBS_CAM_ID, OBS_KP, FilterState, TrackStore, device_consts,
 )
 from msckf_tpu_torch.filter.tracks import (
     _rows_where, gather_cam_poses, resolve_cam_slots, select_rows,
 )
+from msckf_tpu_torch.ops import compensated as dw
 from msckf_tpu_torch.ops import kernels
 from msckf_tpu_torch.ops.geometry import idp_angles_m, skew, so3_exp
 from msckf_tpu_torch.ops.smallmat import (
@@ -328,9 +331,6 @@ def _correction_terms(cfg: MSCKFConfig, P, A, c):
     B^T Y = P; a float32 chain with ``batched_solver="ns"`` takes
     ``gain_solve``, the LU for one sequence and the Newton-Schulz solve
     under vmap."""
-    if cfg.correction_dtype == "compensated":
-        unsupported("correction_dtype", cfg.correction_dtype,
-                    "§1 item 9: the compensated island")
     dt_ = cfg.jdtype
     D = cfg.err_dim
     ct = torch.float64 if cfg.correction_dtype == "float64" else dt_
@@ -361,11 +361,58 @@ def _correction_terms(cfg: MSCKFConfig, P, A, c):
     return delta, P_new
 
 
+def _compensated_chain(cfg: MSCKFConfig, P, A, c):
+    """The chain of :func:`_correction_terms` in double-word float32
+    (``ops/compensated.py``): B = sigma^2 I + A P by an Ozaki product, the
+    solve of B^T Y = P by ``refined_solve`` (``cfg.island_solver``), delta
+    by ``df_matvec``, the Joseph terms by Ozaki products. Returns delta and
+    the new P as DF pairs, before their rounding to float32; they match the
+    float64 chain to about 2^-40."""
+    D = cfg.err_dim
+    P32 = P.to(torch.float32)
+    A32 = A.to(torch.float32)
+    eye = torch.eye(D, dtype=torch.float32, device=P.device)
+    # a float32 tensor: df_scale must not split a Python float in double
+    sigma2 = torch.full((), cfg.sigma_image**2, dtype=torch.float32, device=P.device)
+
+    B = dw.df_add(dw.df_from(sigma2 * eye), dw.ozaki_matmul(A32, P32))
+    # L = P B^{-1}: solve B^T Y = P (P symmetric), L = Y^T
+    Bt = dw.DF(B.hi.mT, B.lo.mT)
+    # five refinement steps reach the double-word floor on realistically
+    # conditioned (cond ~1e7) filter systems
+    Y = dw.refined_solve(Bt, P32, iters=5, solver=cfg.island_solver)
+    L = dw.DF(Y.hi.mT, Y.lo.mT)
+    delta = dw.df_matvec(L.hi, c.to(torch.float32), A_lo=L.lo)
+
+    LA = dw.ozaki_matmul(L.hi, A32, A_lo=L.lo)
+    ImLA = dw.df_sub(dw.df_from(eye), LA)
+    ImLA_P = dw.ozaki_matmul(ImLA.hi, P32, A_lo=ImLA.lo)
+    joseph = dw.ozaki_matmul(ImLA_P.hi, ImLA.hi.mT, A_lo=ImLA_P.lo, B_lo=ImLA.lo.mT)
+    LALt = dw.ozaki_matmul(LA.hi, L.hi.mT, A_lo=LA.lo, B_lo=L.lo.mT)
+    return delta, dw.df_add(joseph, dw.df_scale(LALt, sigma2))
+
+
+def _correction_terms_compensated(cfg: MSCKFConfig, P, A, c):
+    """delta and the Joseph-form P update of the double-word island
+    (:func:`_compensated_chain`), rounded to float32, P symmetrized."""
+    delta, P_new = _compensated_chain(cfg, P, A, c)
+    P_new = dw.df_round(P_new)
+    P_new = (0.5 * (P_new + P_new.mT)).to(cfg.jdtype)
+    return dw.df_round(delta).to(cfg.jdtype), P_new
+
+
 def apply_correction(cfg: MSCKFConfig, state: FilterState, A, c) -> FilterState:
     """Information-form Kalman gain, Joseph covariance update, exp-map state
-    correction with polar re-orthonormalization."""
+    correction with polar re-orthonormalization. The double-word island
+    runs for ``correction_dtype="compensated"`` with a float32 filter; a
+    float64 filter runs the plain chain, as in the JAX package. Float64 is
+    real on the CPU and on the card, so ``"float64"`` never falls back to
+    the island here."""
     N = cfg.n_cam_slots
-    delta, P_new = _correction_terms(cfg, state.P, A, c)
+    if cfg.correction_dtype == "compensated" and cfg.jdtype == torch.float32:
+        delta, P_new = _correction_terms_compensated(cfg, state.P, A, c)
+    else:
+        delta, P_new = _correction_terms(cfg, state.P, A, c)
 
     imu = state.imu
     dR = so3_exp(delta[0:3])

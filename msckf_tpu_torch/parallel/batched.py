@@ -43,9 +43,10 @@ def batched_dispatch(cfg: MSCKFConfig) -> MSCKFConfig:
     * The correction island: the card has float64, so the clause behaves as
       the JAX package's does with x64 on. The float64 LU island stays; a
       float32 filter with ``correction_dtype="compensated"`` gets
-      ``island_solver="ns"``, as in JAX (the compensated island itself is
-      not ported and raises). A float32 chain (``dtype="float32"`` with
-      ``correction_dtype="float32"``) takes ``batched_solver``: with
+      ``island_solver="ns"``, as in JAX. The port's double-word island
+      solves by the LU under vmap for either setting, with no host read. A
+      float32 chain (``dtype="float32"`` with ``correction_dtype="float32"``)
+      takes ``batched_solver``: with
       ``"ns"``, the default, the vmap rule of ``ops/solve.py::gain_solve``
       solves the whole batch by Newton-Schulz with one residual gate and the
       batched LU as its fallback.

@@ -2,6 +2,8 @@
 
     python -m msckf_tpu_torch.runner --source synthetic --max_frames 2400
     python -m msckf_tpu_torch.runner --source synthetic --device cpu
+    python -m msckf_tpu_torch.runner --sequence classic --noise_level mid \
+        --gen_noise default --max_frames 30000 --correction_dtype compensated
 
 The JAX package's flag surface (--source --sequence --max_frames
 --noise_level --save_results --log_images ...), its noise presets, metrics,
@@ -17,8 +19,8 @@ streamed from the host in chunks (``--stream_chunk N``,
 in ``torch.cuda.synchronize()``.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: ``--source tartanair`` / ``peringlab`` (``data/photorealistic.py``),
-``--rerun_live`` (``utils/viz.py``), ``--correction_dtype compensated``.
+item: ``--source tartanair`` / ``peringlab`` (``data/photorealistic.py``)
+and ``--rerun_live`` (``utils/viz.py``).
 """
 
 from __future__ import annotations
@@ -299,7 +301,8 @@ def main(argv=None):
         choices=["", "float64", "compensated", "none"],
         help="precision island of the EKF correction chain "
         "(MSCKFConfig.correction_dtype). Default: the config default "
-        "(float64). 'none': the filter's dtype. 'compensated' is not ported",
+        "(float64). 'none': the filter's dtype. 'compensated': double-word "
+        "float32 (ops/compensated.py) for a float32 filter",
     )
     ap.add_argument("--only_imu", action="store_true")
     ap.add_argument(
@@ -366,8 +369,6 @@ def main(argv=None):
         **({"prune_path": args.prune_path} if args.prune_path else {}),
         **({"gain_solver": args.gain_solver} if args.gain_solver else {}),
     )
-    if cfg.correction_dtype == "compensated":
-        unsupported("correction_dtype", "compensated", "§1 item 9: the compensated island")
 
     if args.batch > 0:
         return _run_batched(args, cfg, dev)

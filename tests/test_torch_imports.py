@@ -8,10 +8,10 @@
   raise without a GPU instead of carrying on on the CPU: the filter's, the
   batched path's, the image front-end's and image-in pipeline's, the
   streamed runs', the checkpoint loader's and the runner's;
-* the one configuration the port does not take, the compensated
-  correction island, raises NotImplementedError; the settings ported with
-  the gain solvers, the Gauss-Newton triangulation and the XLA-only forms
-  run on the single and the batched path;
+* the compensated correction island, the last configuration ported, runs
+  one frame of a float32 filter as the JAX package's does; the settings
+  ported with the gain solvers, the Gauss-Newton triangulation and the
+  XLA-only forms run on the single and the batched path;
 * chip_smoke.py refuses to run without a GPU or without the package.
 """
 
@@ -21,16 +21,25 @@ import subprocess
 import sys
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+import msckf_tpu as jx
+from msckf_tpu.data.stream import build_stream as jax_build_stream
+from msckf_tpu.data.stream import to_device as jax_to_device
+from msckf_tpu.data.synthetic import generate_circle_sequence as jax_circle
+from msckf_tpu.filter.msckf import frame_step as jax_frame_step
+
 import msckf_tpu_torch as mt
+import msckf_tpu_torch.filter.update as port_update
 from msckf_tpu_torch.data.stream import build_stream, to_device
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 from msckf_tpu_torch.filter.msckf import frame_step
 from msckf_tpu_torch.ops import kernels as K
 
+from tests.test_torch_modules import jax_state_from_numpy, jax_state_to_numpy
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -226,29 +235,70 @@ def test_image_entry_points_raise_without_gpu(monkeypatch):
     assert FeatureExtractor(model, device="cpu").extract_features(img.numpy())[0].ndim == 2
 
 
-def _small_variant(small, overrides):
+SMALL_FIELDS = ("dtype", "f_max", "u_max", "k_max", "m_max", "n_cam_slots",
+                "max_camera_states", "desc_dim", "use_pallas_triage")
+
+
+# the circle at the small capacities first updates in frame 5 (0-based)
+UPDATE_TICKS, UPDATE_FRAME = 80, 5
+
+
+def _small_variant(small, overrides, config=mt.reference_experiment_config):
     cfg, st = small
-    return mt.reference_experiment_config(**{
-        **{f: getattr(cfg, f) for f in ("dtype", "f_max", "u_max", "k_max", "m_max",
-                                         "n_cam_slots", "max_camera_states", "desc_dim",
-                                         "use_pallas_triage")},
-        **overrides,
-    })
+    return config(**{**{f: getattr(cfg, f) for f in SMALL_FIELDS}, **overrides})
 
 
 @pytest.mark.parametrize("overrides", [
     {"gating_solver": "ns", "correction_dtype": "compensated"},
     {"correction_dtype": "compensated"},
 ])
-def test_unported_configurations_raise(small, overrides):
-    """The compensated correction island is the one setting left unported."""
-    bad = _small_variant(small, overrides)
-    st = small[1]
-    std = to_device(st, bad, device="cpu")
-    state = mt.make_initial_state(bad, st.R_init, device="cpu")
-    frame = {k: v[0] for k, v in std.frames.items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        frame_step(bad, state, frame, assume_camera=True)
+def test_unported_configurations_raise(small, overrides, monkeypatch):
+    """The compensated correction island, which raised until it was ported,
+    runs: a float32 filter at the small capacities over the circle's first
+    UPDATE_FRAME frames on the port's CPU lane, then the next frame, the
+    first with a real update (A is not zero), from that state in both
+    packages. The counts and masks are equal, and the state is the JAX
+    package's within float32 round-off: 1e-4 of each field's scale (at
+    least 1e-6). The float32 line-intersection triage sets that: the
+    inverse depths differ by 5e-5 of theirs, the island's P by 4e-7."""
+    overrides = {**overrides, "dtype": "float32"}
+    cfg = _small_variant(small, overrides)
+    seq = generate_circle_sequence(rng=np.random.default_rng(0), n_world_points=60)
+    std = to_device(build_stream(
+        cfg, seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
+        seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores, max_ticks=UPDATE_TICKS),
+        cfg, device="cpu")
+    C = UPDATE_FRAME
+    state = mt.make_initial_state(cfg, std.R_init, device="cpu")
+    state, _ = mt.propagate_prefix(cfg, state, std.prefix)
+    state, _ = mt.run_filter(cfg, state, {k: v[:C] for k, v in std.frames.items()},
+                             assume_camera=True)
+    start = mt.state_to_numpy(state)
+
+    updates = []
+    island = port_update._correction_terms_compensated
+    monkeypatch.setattr(port_update, "_correction_terms_compensated",
+                        lambda c, P, A, cc: (updates.append(bool(torch.any(A != 0))),
+                                             island(c, P, A, cc))[1])
+    got, _ = frame_step(cfg, state, {k: v[C] for k, v in std.frames.items()},
+                        assume_camera=True)
+    assert updates == [True]
+
+    jcfg = _small_variant(small, overrides, jx.reference_experiment_config)
+    seq = jax_circle(rng=np.random.default_rng(0), n_world_points=60)
+    jst = jax_to_device(jax_build_stream(
+        jcfg, seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
+        seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores, max_ticks=UPDATE_TICKS), jcfg)
+    want, _ = jax.jit(lambda s, f: jax_frame_step(jcfg, s, f, assume_camera=True))(
+        jax_state_from_numpy(jcfg, start), {k: v[C] for k, v in jst.frames.items()})
+    got, want = mt.state_to_numpy(got), jax_state_to_numpy(want)
+    assert got.keys() == want.keys()
+    for k, w in want.items():
+        if np.issubdtype(w.dtype, np.floating):
+            np.testing.assert_allclose(got[k], w, rtol=0,
+                                       atol=1e-4 * max(np.abs(w).max(), 1e-6), err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], w, err_msg=k)
 
 
 @pytest.mark.parametrize("overrides", [

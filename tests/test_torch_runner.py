@@ -15,6 +15,10 @@
   read through ``--data_root``: the in-memory run's numbers bit for bit, and
   ``--save_results`` writes results.txt;
 * ``--log_images`` writes the overlays, matches drawn by ``draw_matches``;
+* ``--correction_dtype compensated`` with a float32 filter over 100 ticks:
+  the double-word island corrects on real updates, and the metrics and
+  diagnostics equal the float64 island's (the float32 filter rounds both
+  chains' results to the same state);
 * the sources and settings not ported raise ``NotImplementedError`` with
   their ROADMAP.md item.
 """
@@ -127,11 +131,34 @@ def test_log_images(tmp_path):
     assert second.shape == (m.cfg.height, 2 * m.cfg.width, 3)
 
 
+def test_compensated_island_runs(tmp_path, monkeypatch):
+    import msckf_tpu_torch.filter.update as up
+
+    updates = []
+    island = up._correction_terms_compensated
+    monkeypatch.setattr(up, "_correction_terms_compensated",
+                        lambda c, P, A, cc: (updates.append(bool((A != 0).any())),
+                                             island(c, P, A, cc))[1])
+    args = ["--source", "synthetic", "--max_frames", "100", "--dtype", "float32",
+            "--device", "cpu", "--data_root", str(tmp_path)]
+    mc = trunner.main(args + ["--correction_dtype", "compensated"])
+    assert mc.cfg.correction_dtype == "compensated" and mc.cfg.err_dim == 207
+    assert any(updates)  # warm-up and timed run: a call per camera step
+    assert len(updates) == 2 * mc.stats.camera_steps
+    updates.clear()
+    m64 = trunner.main(args + ["--correction_dtype", "float64"])
+    assert not updates
+    assert mc.diag == m64.diag
+    got = _arrays(mc)
+    for name, v in _arrays(m64).items():
+        np.testing.assert_allclose(got[name], v, rtol=0, atol=1e-6, err_msg=name)
+    assert np.linalg.norm(mc.ate[-1]) < 0.05
+
+
 @pytest.mark.parametrize("extra, item", [
     (["--source", "tartanair"], "item 11"),
     (["--source", "peringlab"], "item 11"),
     (["--rerun_live"], "item 11"),
-    (["--correction_dtype", "compensated"], "item 9"),
 ])
 def test_unported_settings_raise(extra, item, tmp_path):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):

@@ -313,21 +313,37 @@ def test_correction_terms_ns_matches_lu_under_vmap(a_scale):
         np.testing.assert_allclose(P_ns.numpy(), np.asarray(jP), rtol=2e-4, atol=1e-7)
 
 
-def test_correction_dtype_none_is_the_plain_chain_and_compensated_raises():
+def test_correction_dtype_none_is_the_plain_chain_and_compensated_raises(monkeypatch):
     """Any ``correction_dtype`` but "float64" and "compensated" is the plain
-    chain in the filter's type (the JAX package's tests pass "" and "none");
-    "compensated" still raises, naming its ROADMAP item."""
+    chain in the filter's type (the JAX package's tests pass "" and "none").
+    "compensated", which raised until the island was ported, is the plain
+    chain too inside ``_correction_terms``, as in the JAX package: the island
+    is chosen by ``apply_correction``, for a float32 filter only."""
+    import msckf_tpu_torch.filter.update as up
+    from msckf_tpu_torch.filter.state import init_state
+
     P, A, c = _chain_inputs(np.random.default_rng(7), 15 + 6 * SMALL["n_cam_slots"],
                             dtype=np.float32)
     args = [torch.as_tensor(x) for x in (P, A, c)]
     outs = {}
-    for cd in ("none", "", "float32"):
+    for cd in ("none", "", "float32", "compensated"):
         cfg = mt.reference_experiment_config(**SMALL, dtype="float32", correction_dtype=cd)
         outs[cd] = _correction_terms(cfg, *args)
         assert outs[cd][1].dtype == torch.float32
-    for cd in ("", "float32"):
+    for cd in ("", "float32", "compensated"):
         for got, want in zip(outs[cd], outs["none"]):
             np.testing.assert_array_equal(got.numpy(), want.numpy())
-    bad = mt.reference_experiment_config(**SMALL, correction_dtype="compensated")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _correction_terms(bad, *args)
+
+    calls = []
+    island = up._correction_terms_compensated
+    monkeypatch.setattr(up, "_correction_terms_compensated",
+                        lambda *a: (calls.append(1), island(*a))[1])
+    for dtype, cd, used in (("float32", "compensated", True), ("float64", "compensated", False),
+                            ("float32", "float64", False), ("float32", "float32", False)):
+        cfg = mt.reference_experiment_config(**SMALL, dtype=dtype, correction_dtype=cd)
+        calls.clear()
+        D = cfg.err_dim
+        up.apply_correction(cfg, init_state(cfg, device="cpu"),
+                            torch.zeros((D, D), dtype=cfg.jdtype),
+                            torch.zeros(D, dtype=cfg.jdtype))
+        assert bool(calls) == used, (dtype, cd)
