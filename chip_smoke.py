@@ -96,9 +96,10 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               per frame; CUDA-event times of detect_and_compute on one frame
               and of the CNN stage over the stack, the filter alone, the
               image loop's frames/s (two runs, in turns with the synthetic
-              default loop when main ran), and a 20-frame profile.
-11. runner  — the port's CLI, msckf_tpu_torch.runner.main, in-process: the
-              whole synthetic circle (the runner's dataset capacities), then
+              default loop when main ran), and a 10-frame profile.
+11. runner  — the port's CLI, msckf_tpu_torch.runner.main, in-process:
+              1,200 ticks of the synthetic circle (the runner's dataset
+              capacities), then
               with --stream_chunk 16 and 64: final error < 0.2 m, no
               overflow, launches equal to twice the loop's prediction (the
               runner's warm-up and timed run), the streamed runs bitwise
@@ -140,8 +141,24 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               syncs, launches, peak memory; (h) the runner's classic
               (10,798 ticks, mid noise, --gen_noise default) with the
               island and the float64 island, in two processes at once
-              beside (f) and (g): no NaN, mean ATE
+              beside (f), (g) and phase sources when it runs: no NaN, mean ATE
               <= 10.5 m and final ATE <= 52.5 m, overflow 0, launches.
+13. sources — the dataset sources: 100 frames of tests/test_tartanair_e2e.py's
+              boxes orbit at TartanAir's camera (640 x 480, f 320, centre
+              320, 240), rendered on the host in 6 processes and written as
+              RGB PNGs by the port's encoder (filter types 0-4 by rows in
+              turn) with the trajectory in TartanAir's format; both grey
+              reads of every frame timed on the host, one frame unfiltered
+              by the native library and by the plain version (equal bytes,
+              both times); the runner with --source tartanair, --frontend
+              fused and host, --refine_subpix (final error < 0.5 m, no NaN,
+              no overflow, launches equal to twice the loop's prediction,
+              camera_info.csv's camera; load time and camera frames/s); the
+              native reader bitwise the csv reader on the generated imu.csv;
+              24 frames in PeringLab's format through --source peringlab;
+              LiveRerunStream with a recording sink on 400 ticks of the
+              circle streamed in 16-frame chunks (one record a tick, the
+              run's positions and counts, launches as predicted).
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -229,7 +246,7 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers", "images", "runner", "island")
+          "solvers", "images", "runner", "island", "sources")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 # ticks of the float64 card-vs-CPU parity runs (phases parity and solvers;
 # 600 until the island phase joined the script, cut to keep it in its time)
@@ -282,6 +299,9 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
 
 
 WINDOWS = 6  # profiler windows kernel_only_ms may take for one reading
+# camera frames of each profile (20 until phase sources joined the script;
+# cut to keep it in its time)
+PROFILE_FRAMES = 10
 
 
 def kernel_only_ms(torch, fn, match=None, reps: int = 20):
@@ -1426,24 +1446,27 @@ def phase_main(torch, pkg, K, seq):
     log(f"main: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
         f"loop's count: {syncs} over the driven run's {frames} frames); PyTorch sync-debug "
         f"warnings over one run: {sum(sites.values())}, by site {sites}")
-    std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * 20)
+    std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * PROFILE_FRAMES)
     profile_window(torch, prof_run, std.frames["imu_ts"].shape[0], "main")
     return run, C, launches, first_s, driven_stats
 
 
 def phase_driven(torch, pkg, K, seq, label, profile=False, **overrides):
     """A whole-circle configuration other than the default: its driven run
-    and the sync check; with ``profile``, a 20-frame profile."""
+    and the sync check over SOLVER_TICKS (phase main's covers the prunes of
+    the whole circle); with ``profile``, a PROFILE_FRAMES-frame profile."""
     cfg = pkg.reference_experiment_config(**overrides)
     run, stats, launches, C, first_s = drive(torch, pkg, K, seq, cfg, label)
     driven_stats = copy.copy(stats)  # the run closure keeps counting into stats
     syncs, frames = stats.host_syncs, stats.frames
-    sites = sync_check(torch, run, stats, label)
+    sstats = pkg.FrameStats()
+    _, srun = _run(torch, pkg, cfg, seq, DEVICE, SOLVER_TICKS, sstats)
+    sites = sync_check(torch, srun, sstats, label)
     log(f"{label}: first run {first_s:.3f} s; host syncs per frame {syncs / frames:.3f} (the "
-        f"loop's count: {syncs} over {frames} frames); PyTorch sync-debug warnings over one "
-        f"run: {sum(sites.values())}, by site {sites}")
+        f"loop's count: {syncs} over {frames} frames); PyTorch sync-debug warnings over "
+        f"{SOLVER_TICKS} ticks: {sum(sites.values())}, by site {sites}")
     if profile:
-        std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * 20)
+        std, prof_run = _run(torch, pkg, cfg, seq, DEVICE, 20 + 10 * PROFILE_FRAMES)
         profile_window(torch, prof_run, std.frames["imu_ts"].shape[0], label)
     return run, C, launches, first_s, driven_stats
 
@@ -1650,8 +1673,8 @@ def phase_batched(torch, pkg, K, seq, single=None):
             f"{tb / ts:.3f}, aggregate / single frames/s {BATCH * ts / tb:.3f} (the driven "
             f"runs of both)")
     for label, cfg in (("batched", base), ("batched fused", fused_cfg)):
-        _, prof_run = make_run(cfg, 20 + 10 * 20)
-        profile_window(torch, prof_run, 20, label)
+        _, prof_run = make_run(cfg, 20 + 10 * PROFILE_FRAMES)
+        profile_window(torch, prof_run, PROFILE_FRAMES, label)
     return launches, (C, first_s)
 
 
@@ -2135,8 +2158,8 @@ def phase_images(torch, pkg, K, default=None):
         log(f"rates: synthetic default loop in the same turns {_rate(C_d, times['default'])}; "
             f"image loop / default frames/s {(C / t_img) / (C_d / t_def):.3f} (turns "
             f"{''.join({'default': 'A', 'images': 'B', 'filter': 'C'}[n] for n in order)})")
-    _, _, _, prof_run = image_run(torch, pkg, cfg, model, seq, max_ticks=20 + 10 * 20)
-    profile_window(torch, prof_run, 20, "images")
+    _, _, _, prof_run = image_run(torch, pkg, cfg, model, seq, max_ticks=20 + 10 * PROFILE_FRAMES)
+    profile_window(torch, prof_run, PROFILE_FRAMES, "images")
     log(f"images: the filter per frame {t_fil / C * 1e3:.3f} ms, the CNN per frame "
         f"{stack_ms / C:.4f} ms, the image loop per frame {t_img / C * 1e3:.3f} ms "
         f"(first run {first_s:.3f} s)")
@@ -2146,7 +2169,10 @@ def phase_images(torch, pkg, K, default=None):
 # phase 11: the runner, chunked streaming and checkpoint/resume
 # ---------------------------------------------------------------------------
 
-RUNNER_TICKS = 2400  # the whole synthetic circle, the runner's default
+# half the synthetic circle (the runner's default is the whole 2,400 ticks):
+# the whole script with 2,400 took 1,248.3 s, over its 1,200 s, on a host
+# whose default loop ran at 17.2 frames/s
+RUNNER_TICKS = 1200
 RUNNER_CHUNKS = (16, 64)
 # the batch and the rendered runs were cut from 600 and 800 ticks when the
 # island phase joined the script, to keep it in its time
@@ -2231,8 +2257,8 @@ def tick_output_bytes(cfg, ticks: int) -> int:
 
 
 def phase_runner(torch, pkg, K):
-    """The port's CLI on the card: the whole synthetic circle monolithic and
-    streamed, a checkpoint mid-sequence, a batch of BATCH sequences
+    """The port's CLI on the card: RUNNER_TICKS of the synthetic circle
+    monolithic and streamed, a checkpoint mid-sequence, a batch of BATCH sequences
     unstreamed and streamed, and the rendered source through both
     front-ends."""
     import tempfile
@@ -2932,10 +2958,10 @@ def classic_runs():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def island_classic(procs, t0):
+def island_classic(procs, t0, beside: str):
     """(h) the two classic runs of ``classic_runs``: no NaN, mean and final
     ATE within CLASSIC_LIMITS, no overflow, launches twice the loop's
-    prediction (warm-up and timed run)."""
+    prediction (warm-up and timed run). ``beside``: what ran beside them."""
     for p, _, _ in procs.values():
         p.wait(timeout=max(900 - (time.perf_counter() - t0), 1))
     wall = time.perf_counter() - t0
@@ -2962,16 +2988,17 @@ def island_classic(procs, t0):
             f"frame {r['syncs_per_frame']:.3f}; launches = 2 x predicted; warm-up "
             f"{prof['warmup_s']} s, timed run {prof['sequence_s']:.3f} s "
             f"({prof['camera_updates_per_s']} camera updates/s, beside the other run and "
-            f"checks (f) and (g))")
+            f"{beside})")
     log(f"island (h): both classic runs in {wall:.1f} s, in two processes at once beside "
-        f"checks (f) and (g)")
+        f"{beside}")
 
 
-def phase_island(torch, pkg, K, seq, driven=None, batched_f64=None):
+def phase_island(torch, pkg, K, seq, driven=None, batched_f64=None, beside=None):
     """The double-word correction island on the card: its arithmetic, the
     slices, the products, the solves, the chain on real updates, the single
     and the batched circle (beside the float64 island's driven runs of the
-    earlier phases where they ran), and the runner's classic."""
+    earlier phases where they ran), and the runner's classic. ``beside``:
+    work run after (f) and (g) while the classic runs go on."""
     from msckf_tpu_torch.ops import compensated as dw
 
     rng = np.random.default_rng(15)
@@ -2984,11 +3011,186 @@ def phase_island(torch, pkg, K, seq, driven=None, batched_f64=None):
     island_single_turns(torch, pkg, seq)
     island_batched_turns(torch, pkg)
     # the classic runs share the card with checks (f) and (g), whose times
-    # no rate reads
+    # no rate reads, and with ``beside``
     with classic_runs() as (procs, t0):
         island_circle(torch, pkg, K, seq, driven)
         island_batched(torch, pkg, K, batched_f64)
-        island_classic(procs, t0)
+        if beside is not None:
+            beside()
+        island_classic(procs, t0,
+                       "checks (f) and (g)" + (" and phase sources" if beside else ""))
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the dataset sources
+# ---------------------------------------------------------------------------
+
+# TartanAir's published camera: 640 x 480, fx = fy = 320, cx = 320, cy = 240
+TARTANAIR_CAMERA = dict(width=640, height=480, fxy=320.0)
+SOURCES_FRAMES = 100  # camera frames of the boxes orbit: 910 IMU ticks
+PERINGLAB_FRAMES = 24
+RENDER_WORKERS = 6  # processes rendering the orbit's frames (beside the classic runs)
+LIVE_CHUNK = 16  # frames a chunk of the live-streamed run
+LIVE_TICKS = 400
+
+
+def sources_decode(frames, width, height):
+    """Both grey reads of every frame, timed on the host, and one frame's
+    rows unfiltered by the native library and by the plain version (equal
+    bytes; both times)."""
+    import zlib
+
+    from msckf_tpu_torch.data import imageio
+
+    times = {}
+    for name, read in (("IMREAD_GRAYSCALE", imageio.imread_grayscale),
+                       ("cvtColor", imageio.imread_color_gray)):
+        t0 = time.perf_counter()
+        for p in frames:
+            img = read(p)
+            check(img.shape == (height, width) and img.dtype == np.uint8,
+                  f"sources: {name} read {img.shape} {img.dtype}")
+        times[name] = (time.perf_counter() - t0) * 1e3 / len(frames)
+    data = Path(frames[0]).read_bytes()
+    raw = np.frombuffer(zlib.decompress(b"".join(
+        body for ctype, body in imageio._chunks(data, frames[0]) if ctype == "IDAT")), np.uint8)
+    t0 = time.perf_counter()
+    native = imageio.unfilter(raw, height, 3 * width, 3)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = imageio.unfilter_plain(raw, height, 3 * width, 3)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(native, plain), "sources: the native unfilter differs from the plain")
+    kinds = np.bincount(raw.reshape(height, -1)[:, 0], minlength=5)
+    log(f"sources: decode on the card's host, {len(frames)} RGB PNG frames of {width}x{height}: "
+        f"{times['IMREAD_GRAYSCALE']:.2f} ms a frame (IMREAD_GRAYSCALE formula), "
+        f"{times['cvtColor']:.2f} ms (cvtColor formula); one frame's rows (filter types "
+        f"{kinds.tolist()}) unfiltered in {native_ms:.2f} ms by the native library, "
+        f"{plain_ms:.1f} ms by the plain version, equal bytes")
+
+
+def sources_live(torch, pkg, K):
+    """LiveRerunStream with a recording sink on the circle streamed in
+    LIVE_CHUNK-frame chunks: one log record a tick, each tick's estimated
+    position, track and camera counts those of the run's outputs, launches
+    as the loop predicts."""
+    from msckf_tpu_torch.data.stream import build_stream
+    from msckf_tpu_torch.data.synthetic import generate_circle_sequence
+    from msckf_tpu_torch.filter.streamed import run_sequence_streamed
+    from msckf_tpu_torch.utils.viz import HAVE_RERUN, LiveRerunStream
+
+    cfg = pkg.reference_experiment_config()
+    seq = generate_circle_sequence(rng=np.random.default_rng(0), desc_dim=10)
+    st = build_stream(cfg, seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
+                      seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores,
+                      max_ticks=LIVE_TICKS)
+    from tests.torch_fixtures import RecordingSink
+
+    sink = RecordingSink()
+    live = LiveRerunStream(seq.poses_R, seq.poses_t, sink=sink)
+    stats = pkg.FrameStats()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    _, pre, fr = run_sequence_streamed(
+        cfg, pkg.make_initial_state(cfg, st.R_init, device=DEVICE), st.prefix, st.frames,
+        chunk_frames=LIVE_CHUNK, device=DEVICE, assume_camera=True, stats=stats,
+        on_prefix=live.consume, on_chunk=lambda start, out: live.consume(out))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.launch_counts()
+    C, B = st.frames["imu_ts"].shape
+    predicted = predicted_launches(K, cfg, stats, C, B, st.prefix["imu_ts"].shape[0])
+    for k, v in launches.items():
+        check(v == predicted[k], f"sources live: {k} launched {v} times, the loop predicts "
+                                 f"{predicted[k]}")
+
+    def flat(name):
+        a, b = np.asarray(getattr(pre, name)), np.asarray(getattr(fr, name))
+        return np.concatenate([a, b.reshape((-1,) + b.shape[2:])])
+
+    valid = flat("valid").astype(bool)
+    ticks = [c for c in sink.calls if c[0] == "set_time"]
+    logs = {}
+    for c in sink.calls:
+        if c[0] == "log":
+            logs.setdefault(c[1], []).append(c[2])
+    n = int(valid.sum())
+    check(len(ticks) == n and [c[2] for c in ticks] == list(range(n)),
+          f"sources live: {len(ticks)} ticks logged, the run has {n}")
+    check(all(len(v) == n for v in logs.values()) and len(logs) == 21,
+          f"sources live: {len(logs)} log paths, counts {sorted({len(v) for v in logs.values()})}")
+    if not HAVE_RERUN:  # the payloads are (name, data) pairs without rerun
+        est = logs["world/estimated_trajectory"][-1][1]
+        check(np.array_equal(est, flat("p_WI")[valid]),
+              "sources live: the logged trajectory differs from the run's outputs")
+        check([p[1] for p in logs["msckf/features"]] == flat("n_tracks")[valid].tolist()
+              and [p[1] for p in logs["msckf/camera_states"]] == flat("n_cams")[valid].tolist(),
+              "sources live: the logged track or camera counts differ from the run's outputs")
+    log(f"sources live: LiveRerunStream with a recording sink on the circle, {LIVE_TICKS} ticks "
+        f"streamed in {LIVE_CHUNK}-frame chunks ({-(-C // LIVE_CHUNK)} chunks): {n} ticks "
+        f"logged, {len(sink.calls)} calls, the trajectory and counts those of the run's "
+        f"outputs; launches = predicted; {wall:.2f} s with the logging")
+
+
+def phase_sources(torch, pkg, K):
+    """The TartanAir- and PeringLab-format sources on the card through the
+    port's CLI, the PNG codec and the native reader on the card's host, and
+    LiveRerunStream on a streamed run."""
+    import tempfile
+
+    from msckf_tpu_torch.data import native_io
+    from msckf_tpu_torch.data.parser import read_table
+    from tests.torch_fixtures import write_orbit_dataset
+
+    check(native_io.have_native(), "sources: the native host library did not build")
+    cam = TARTANAIR_CAMERA
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        seq_dir = write_orbit_dataset(tmp, "tartanair", "orbit", n_cam=SOURCES_FRAMES, rgb=True,
+                                      filters=range(5), workers=RENDER_WORKERS, **cam)
+        log(f"sources: {SOURCES_FRAMES} frames of the boxes orbit at TartanAir's camera "
+            f"({cam['width']}x{cam['height']}, f {cam['fxy']}) rendered and written as RGB "
+            f"PNGs, filter types 0-4 by rows in turn, in {time.perf_counter() - t0:.1f} s "
+            f"({RENDER_WORKERS} processes)")
+        frames = sorted(str(p) for p in (Path(seq_dir) / "cam").iterdir())
+        sources_decode(frames, cam["width"], cam["height"])
+
+        for source, frontend in (("tartanair", "fused"), ("tartanair", "host"),
+                                 ("peringlab", "fused")):
+            if source == "peringlab":
+                write_orbit_dataset(tmp, "peringlab", "orbit", n_cam=PERINGLAB_FRAMES,
+                                    workers=RENDER_WORKERS, **cam)
+            label = f"sources --source {source} --frontend {frontend}"
+            t0 = time.perf_counter()
+            m, launches = runner_call(torch, K, [
+                "--source", source, "--sequence", "orbit", "--data_root", tmp,
+                "--noise_level", "low", "--max_frames", "1000", "--refine_subpix",
+                "--frontend", frontend, "--device", DEVICE])
+            call_s = time.perf_counter() - t0
+            check(np.isfinite(m.ate).all() and np.isfinite(m.aoe).all(),
+                  f"{label}: NaN or inf in the trajectory's errors")
+            check((m.cfg.width, m.cfg.height, m.cfg.K[0][0]) == (cam["width"], cam["height"],
+                                                                 cam["fxy"]),
+                  f"{label}: the camera_info.csv camera was not taken")
+            check_runner_run(K, label, m, launches, 0.5)
+            p = m.profiling
+            load_s = call_s - p["warmup_s"] - p["sequence_s"]
+            log(f"{label}: the call {call_s:.1f} s, loading {load_s:.1f} s "
+                f"(IMU generation, parsing, rasters{', features' if frontend == 'host' else ''}); "
+                f"timed run {p['sequence_s']:.3f} s, {p['camera_updates_per_s']} camera "
+                f"frames/s")
+            if source == "tartanair" and frontend == "fused":
+                # the native reader against the csv reader on the generated IMU
+                imu = f"{seq_dir}/imu.csv"
+                a = native_io.read_numeric_csv(imu)
+                b = np.stack(list(read_table(imu).values()), axis=-1)
+                check(a.shape == b.shape and np.array_equal(a.view(np.uint64),
+                                                            b.view(np.uint64)),
+                      "sources: the native reader differs from the csv reader on imu.csv")
+                log(f"sources: imu.csv ({a.shape[0]} rows) read by the native library bitwise "
+                    f"as by the csv reader")
+    sources_live(torch, pkg, K)
 
 
 def profile_window(torch, run, n_frames: int, label: str):
@@ -3138,9 +3340,18 @@ def main(argv=None) -> int:
     if "runner" in phases:
         phase("runner")
         phase_runner(torch, pkg, K)
+    sources = None
+    if "sources" in phases:
+        def sources():
+            phase("sources")
+            phase_sources(torch, pkg, K)
     if "island" in phases:
+        # phase sources runs while the island's classic runs go on: they
+        # are the island phase's longest part and leave the card idle
         phase("island")
-        phase_island(torch, pkg, K, seq, driven, batched_f64)
+        phase_island(torch, pkg, K, seq, driven, batched_f64, beside=sources)
+    elif sources is not None:
+        sources()
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

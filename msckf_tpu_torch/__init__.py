@@ -6,9 +6,11 @@ imports torch, numpy and scipy, never JAX. Entry points run on the GPU
 unless the caller passes ``device="cpu"``; on the CPU each kernel's plain
 PyTorch version runs instead. The image front-end (the XFeat CNN,
 ``detect_and_compute``) feeds the same loop through ``run_sequence_images``.
-The CLI is ``python -m msckf_tpu_torch.runner``; ``filter/streamed.py``
-streams sequences longer than device memory and ``utils/checkpoint.py``
-saves and restores a state. See ROADMAP.md for what is ported.
+The CLI is ``python -m msckf_tpu_torch.runner`` (synthetic, rendered,
+TartanAir- and PeringLab-format sources; ``data/imageio.py`` reads PNG
+rasters without OpenCV); ``filter/streamed.py`` streams sequences longer
+than device memory and ``utils/checkpoint.py`` saves and restores a state.
+See ROADMAP.md for what is ported.
 """
 
 from msckf_tpu_torch.config import MSCKFConfig, NOISE_PRESETS, reference_experiment_config
@@ -23,6 +25,7 @@ from msckf_tpu_torch.filter.msckf import (
     run_filter,
     run_sequence,
 )
+from msckf_tpu_torch.filter.propagation import propagate
 from msckf_tpu_torch.filter.state import (
     FilterState,
     init_state,
@@ -55,6 +58,7 @@ __all__ = [
     "make_initial_state",
     "camera_step",
     "frame_step",
+    "propagate",
     "propagate_prefix",
     "run_filter",
     "run_sequence",

@@ -4,11 +4,8 @@
 same defaults, so a configuration means the same filter in both packages.
 The only difference is :attr:`MSCKFConfig.jdtype`, which is a ``torch.dtype``
 here. The config is frozen and hashable, which lets per-device constant
-tensors be cached by config (``filter/state.py::device_consts``).
-
-The port runs one slice of the JAX package's configuration space; the flags
-it does not take raise ``NotImplementedError`` at the call site that would
-branch on them (see :func:`unsupported`).
+tensors be cached by config (``filter/state.py::device_consts``). The port
+runs every setting of the JAX package's filter.
 """
 
 from __future__ import annotations
@@ -203,11 +200,3 @@ NOISE_PRESETS = {
     "mid": (0.005, 0.0005, 0.0005, 0.00005),
     "low": (0.001, 0.0001, 0.0001, 0.00001),
 }
-
-
-def unsupported(flag: str, value, roadmap_item: str):
-    """Raise for a configuration this port does not run yet."""
-    raise NotImplementedError(
-        f"{flag}={value!r} is not ported to msckf_tpu_torch yet "
-        f"(ROADMAP.md: {roadmap_item})"
-    )

@@ -7,7 +7,9 @@ timestamp windowing, per-frame synthetic measurement CSVs (timestamp, id,
 x, y, score, descriptor_0..9) and ``world_points.csv``.
 
 The JAX package parses with pandas; this module uses the ``csv`` module and
-numpy, so it runs where pandas is not installed. A table is a dict of
+numpy, so it runs where pandas is not installed, and reads the per-frame
+keypoint files and ``load_imu_batch``'s IMU files through the native reader
+(``data/native_io.py``) where the JAX parser does. A table is a dict of
 columns: a float64 array for a numeric column, a list of strings
 otherwise. The writer formats every float by its shortest round-trip
 ``repr`` and every integer as a plain integer, which is what pandas'
@@ -20,15 +22,16 @@ from __future__ import annotations
 
 import csv
 import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from msckf_tpu_torch.data import native_io
 
-def read_table(path: str) -> dict:
+
+def read_table(path: str, sep: str = ",") -> dict:
     """A CSV with a header row as a dict of columns."""
     with open(path, newline="") as f:
-        rows = list(csv.reader(f))
+        rows = list(csv.reader(f, delimiter=sep))
     header, body = rows[0], rows[1:]
     cols = {}
     for i, name in enumerate(header):
@@ -107,11 +110,11 @@ class Parser:
 
     def extract_synthetic_camera_measurements(self, path: str):
         """(keypoints (n, 2), descriptors (n, 10), scores (n,)) of one
-        per-frame keypoint CSV."""
-        t = read_table(path)
-        kp = np.stack([t["x"], t["y"]], axis=-1)
-        desc = np.stack([t[f"descriptor_{i}"] for i in range(10)], axis=-1)
-        return kp, desc, t["score"]
+        per-frame keypoint CSV (columns timestamp, id, x, y, score,
+        descriptor_0..9), read by the native mmap parser where it is built:
+        this is the per-frame hot path of dataset loading."""
+        a = native_io.read_numeric_csv(path)
+        return a[:, 2:4], a[:, 5:15], a[:, 4]
 
     def extract_gt_world_points(self) -> np.ndarray:
         t = read_table(self.root + "world_points.csv")
@@ -201,8 +204,15 @@ def save_sequence_csv(seq, folder: str) -> None:
 
 
 def load_imu_batch(paths, threads=None):
-    """Read many imu.csv files on a pool of ``threads`` threads (the host
-    feeder of a batched multi-sequence run). Returns a list of
-    (ts, gyro, acc) in input order."""
-    with ThreadPoolExecutor(max_workers=threads) as pool:
-        return [imu_arrays(t) for t in pool.map(read_table, list(paths))]
+    """Read many imu.csv files on the native thread pool
+    (``native_io.read_numeric_csvs``; the host feeder of a batched
+    multi-sequence run). Returns a list of (ts, gyro, acc) in input order."""
+    paths = list(paths)
+    headers = []
+    for p in paths:
+        with open(p, newline="") as f:
+            headers.append([c.strip() for c in next(csv.reader(f))])
+    out = []
+    for hdr, arr in zip(headers, native_io.read_numeric_csvs(paths, threads=threads)):
+        out.append(imu_arrays({name: arr[:, i] for i, name in enumerate(hdr)}))
+    return out

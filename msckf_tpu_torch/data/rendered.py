@@ -134,6 +134,24 @@ def make_boxes(rng: np.random.Generator, n_boxes: int = 28,
     return np.stack([lo, hi], axis=1)
 
 
+def _box_window(lo, hi, R_WC, t_WC, K, width: int, height: int):
+    """(r0, r1, c0, c1): the pixel rectangle that can see the box [lo, hi].
+    With every corner in front of the camera the box projects into the
+    bounding rectangle of its corners' projections (kept one pixel wider
+    for round-off); otherwise the whole image."""
+    corners = np.array([[x, y, z] for x in (lo[0], hi[0]) for y in (lo[1], hi[1])
+                        for z in (lo[2], hi[2])])
+    pc = (corners - t_WC) @ R_WC  # camera frame: R_WC^T (p - t)
+    if (pc[:, 2] <= 1e-6).any():
+        return 0, height, 0, width
+    uv = (pc @ K.T)[:, :2] / pc[:, 2:3]
+    c0 = max(int(np.floor(uv[:, 0].min())) - 1, 0)
+    c1 = min(int(np.ceil(uv[:, 0].max())) + 2, width)
+    r0 = max(int(np.floor(uv[:, 1].min())) - 1, 0)
+    r1 = min(int(np.ceil(uv[:, 1].max())) + 2, height)
+    return r0, r1, c0, c1
+
+
 def render_scene_view(R_WC: np.ndarray, t_WC: np.ndarray, K: np.ndarray,
                       width: int, height: int, seed: int = 0,
                       boxes: np.ndarray | None = None) -> np.ndarray:
@@ -166,27 +184,36 @@ def render_scene_view(R_WC: np.ndarray, t_WC: np.ndarray, K: np.ndarray,
 
     d_safe = np.where(np.abs(rays_w) < 1e-12, 1e-12, rays_w)
     for bi, (lo, hi) in enumerate(boxes):
-        t1 = (lo - o) / d_safe  # (H, W, 3)
-        t2 = (hi - o) / d_safe
+        # each box is traced only over the pixels its projection can cover;
+        # every step is elementwise, so they get a whole-image pass's values
+        r0, r1, c0, c1 = _box_window(lo, hi, R_WC, t_WC, K, width, height)
+        if r0 >= r1 or c0 >= c1:
+            continue
+        win = (slice(r0, r1), slice(c0, c1))
+        d = d_safe[win]
+        t1 = (lo - o) / d  # (h, w, 3)
+        t2 = (hi - o) / d
         tn = np.minimum(t1, t2)
         tf = np.maximum(t1, t2)
         axis = np.argmax(tn, axis=-1)  # entering slab = the face hit
         t_near = np.take_along_axis(tn, axis[..., None], -1)[..., 0]
         t_far = np.min(tf, axis=-1)
-        hit = (t_near > 1e-3) & (t_near <= t_far) & (t_near < best_t)
+        hit = (t_near > 1e-3) & (t_near <= t_far) & (t_near < best_t[win])
         if not hit.any():
             continue
-        p = o + t_near[..., None] * rays_w  # (H, W, 3) hit points
+        # the face's texture only at the pixels that hit it
+        axis_h = axis[hit]
+        p = o + t_near[hit][:, None] * rays_w[win][hit]  # (N, 3) hit points
         # face texture coordinates: the two coordinates orthogonal to the
         # hit face's normal, at 2x frequency for finer structure
-        u = np.where(axis == 0, p[..., 1], p[..., 0])
-        v = np.where(axis == 2, p[..., 1], p[..., 2])
+        u = np.where(axis_h == 0, p[:, 1], p[:, 0])
+        v = np.where(axis_h == 2, p[:, 1], p[:, 2])
         face_tex = plane_texture(
             u * 2.0, v * 2.0, seed + 101 * (bi + 1), octaves=(1.0, 2.0, 4.0)
         )
-        shade = np.where(axis == 2, 1.0, np.where(axis == 0, 0.78, 0.62))
-        img = np.where(hit, (face_tex * shade).astype(np.float32), img)
-        best_t = np.where(hit, t_near, best_t)
+        shade = np.where(axis_h == 2, 1.0, np.where(axis_h == 0, 0.78, 0.62))
+        img[win][hit] = (face_tex * shade).astype(np.float32)
+        best_t[win][hit] = t_near[hit]
     return img
 
 

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from msckf_tpu_torch.config import MSCKFConfig, unsupported
+from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.augmentation import state_augmentation
 from msckf_tpu_torch.filter.marginalization import (
     cameras_without_features, prune_poorest_camera_states, remove_cameras,
@@ -139,13 +139,12 @@ def camera_step(cfg: MSCKFConfig, state: FilterState, kp, desc, score, kp_valid,
     """The camera-frame update, then the prune when the window is full:
     with ``prune_path="masked"`` the prune runs every frame with its
     victims masked off while the window is not full (an exact no-op then);
-    with ``"cond"`` it is a host-side branch, or with ``batched`` a select
-    of both branches (the outer on the saturation, the prune's inner on its
-    update, as ``jax.vmap`` makes of the JAX package's two ``lax.cond``s)."""
+    with ``"cond"`` (and any other value, as in the JAX package) it is a
+    host-side branch, or with ``batched`` a select of both branches (the
+    outer on the saturation, the prune's inner on its update, as
+    ``jax.vmap`` makes of the JAX package's two ``lax.cond``s)."""
     if cfg.only_imu:
         return state
-    if cfg.prune_path not in ("cond", "masked"):
-        unsupported("prune_path", cfg.prune_path, "§1 later slices")
     state = state_augmentation(cfg, state)
     state = add_camera_measurements(cfg, state, kp, desc, score, kp_valid)
     state = process_features(cfg, state)

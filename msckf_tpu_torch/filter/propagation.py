@@ -6,6 +6,8 @@ dba 9:12, dp 12:15]. A block of B IMU ticks touches the padded covariance
 once: the 15x15 IMU block runs the per-tick recurrence, and the cross block
 is updated as P_ic <- Phi_acc P_ic with Phi_acc = Phi_B ... Phi_1.
 
+``integrate_nominal`` and ``propagate`` (one ``process_imu`` tick on the
+whole padded covariance) are the public one-tick surface.
 ``propagate_block`` keeps the JAX package's block-size dispatch:
 B <= 2 -> one fused kernel (``ops/kernels.py::propagate_block_fused``);
 3 <= B <= 64 -> batched Phi/Qd in PyTorch plus the P15 recurrence kernel;
@@ -14,12 +16,15 @@ B > 64 -> a plain per-tick loop.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.state import FilterState, ImuState, device_consts
 from msckf_tpu_torch.ops import kernels
+from msckf_tpu_torch.ops.device import check_on_device, resolve_device
 from msckf_tpu_torch.ops.geometry import rodrigues_unit, skew
+from msckf_tpu_torch.ops.precision import with_f32_matmuls
 
 
 def _with_imu_block(P: torch.Tensor, P15: torch.Tensor, Phi_acc: torch.Tensor):
@@ -29,6 +34,49 @@ def _with_imu_block(P: torch.Tensor, P15: torch.Tensor, Phi_acc: torch.Tensor):
     top = torch.cat([P15, P_ic], dim=1)
     bottom = torch.cat([P_ic.T, P[15:, 15:]], dim=1)
     return torch.cat([top, bottom], dim=0)
+
+
+def integrate_nominal(imu: ImuState, acc: torch.Tensor, gyro: torch.Tensor,
+                      dt: torch.Tensor, gravity: torch.Tensor):
+    """Nominal-state integration of one tick: (R, p, v) after it. acc and
+    gyro are bias-corrected body-frame measurements; the rotation is the
+    closed-form Rodrigues increment about the unit gyro axis, velocity and
+    position explicit Euler with the 1/2 a dt^2 term."""
+    w_norm = torch.linalg.vector_norm(gyro)
+    theta = w_norm * dt
+    axis = gyro / torch.where(w_norm < 1e-30, torch.ones_like(w_norm), w_norm)
+    I3 = torch.eye(3, dtype=gyro.dtype, device=gyro.device)
+    dR = torch.where(theta > 0, rodrigues_unit(axis, theta), I3)
+    R_new = imu.R_WI @ dR
+    a_world = imu.R_WI @ acc - gravity
+    p_new = imu.p_WI + imu.v_WI * dt + 0.5 * a_world * dt * dt
+    v_new = imu.v_WI + a_world * dt
+    return R_new, p_new, v_new
+
+
+def _as_input(x, dev: torch.device) -> torch.Tensor:
+    """A measurement on ``dev``: a tensor as it is, an array as float64 (the
+    filter casts it to its dtype, as the JAX package does)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return torch.as_tensor(np.asarray(x, np.float64), device=dev)
+
+
+@with_f32_matmuls
+def propagate(cfg: MSCKFConfig, state: FilterState, gyro, acc, timestamp,
+              device=None) -> FilterState:
+    """One ``process_imu`` step on ``device`` (the GPU unless
+    ``device="cpu"``), where ``state`` must already live: the nominal state
+    integrated, and the padded covariance propagated as
+    P_II <- Phi P_II Phi^T + Q, P_IC <- Phi P_IC, then symmetrized (invalid
+    camera rows and columns of P are zero, so the padded product is exact).
+    gyro and acc are (3,) raw measurements, timestamp the tick's time."""
+    dev = resolve_device(device)
+    check_on_device(state.P, dev, "the filter state")
+    imu_new, Phi, Q = _phi_q_for_tick(cfg, state.imu, _as_input(gyro, dev),
+                                      _as_input(acc, dev), _as_input(timestamp, dev))
+    P = _with_imu_block(state.P, Phi @ state.P[:15, :15] @ Phi.T + Q, Phi)
+    return state.replace(imu=imu_new, P=0.5 * (P + P.T))
 
 
 def _phi_q_for_tick(cfg: MSCKFConfig, imu: ImuState, gyro, acc, timestamp):
@@ -47,14 +95,7 @@ def _phi_q_for_tick(cfg: MSCKFConfig, imu: ImuState, gyro, acc, timestamp):
     v_null = torch.where(first, torch.zeros_like(imu.v_WI), imu.v_WI)
     p_null = torch.where(first, torch.zeros_like(imu.p_WI), imu.p_WI)
 
-    w_norm = torch.linalg.vector_norm(gyro)
-    theta = w_norm * dt
-    axis = gyro / torch.where(w_norm < 1e-30, torch.ones_like(w_norm), w_norm)
-    dR = torch.where(theta > 0, rodrigues_unit(axis, theta), I3)
-    R_new = imu.R_WI @ dR
-    a_world = imu.R_WI @ acc - gravity
-    p_new = imu.p_WI + imu.v_WI * dt + 0.5 * a_world * dt * dt
-    v_new = imu.v_WI + a_world * dt
+    R_new, p_new, v_new = integrate_nominal(imu, acc, gyro, dt, gravity)
 
     F = torch.cat([
         torch.cat([-skew(gyro), -I3, Z3, Z3, Z3], dim=1),

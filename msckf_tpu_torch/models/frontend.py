@@ -4,9 +4,10 @@
 ``FeatureExtractor`` wraps ``detect_and_compute`` (top-k keypoints,
 descriptors and scores of one image, invalid slots dropped) and upstream
 XFeat's mutual nearest-neighbour cosine matching; ``match_frames`` matches
-two raw frames. The image-file helpers (``load_image_grayscale``,
-``draw_matches``, ``extract_sequence_features``) import OpenCV inside the
-function, so the module imports without it. The filter's own track matching
+two raw frames. ``load_image_grayscale`` (and so
+``extract_sequence_features``) reads a PNG with ``data/imageio.py``, without
+OpenCV; ``draw_matches`` imports OpenCV inside the function, so the module
+imports without it. The filter's own track matching
 lives on the device in ``msckf_tpu_torch/filter/matching.py``.
 """
 
@@ -17,6 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from msckf_tpu_torch.data import imageio
 from msckf_tpu_torch.models.xfeat import (
     XFeatModel, batched_detect_and_compute, detect_and_compute, init_params,
 )
@@ -103,13 +105,9 @@ def draw_matches(image1: np.ndarray, keypoints1: np.ndarray,
 
 
 def load_image_grayscale(path: str) -> np.ndarray:
-    """An image file as a float32 (H, W) grayscale array in [0, 255]."""
-    import cv2
-
-    img = cv2.imread(path)
-    if img is None:
-        raise FileNotFoundError(f"image not readable: {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2GRAY).astype(np.float32)
+    """An image file as a float32 (H, W) grayscale array in [0, 255], as
+    OpenCV's ``cvtColor(imread(path), COLOR_BGR2GRAY)`` gives it."""
+    return imageio.imread_color_gray(path).astype(np.float32)
 
 
 def extract_sequence_features(paths: Sequence[str], top_k: int = 300,

@@ -11,16 +11,21 @@ consistency report and results.txt, plus ``--device`` (default ``cuda``;
 ``cpu`` runs the kernels' plain versions). Without a GPU and without
 ``--device cpu`` the runner raises; it never carries on on the CPU.
 
+Sources: the synthetic circle and classic (in memory, or on disk under
+``--data_root``), the rendered circle and boxes, and datasets in the
+TartanAir and PeringLab formats (``{data_root}/{source}/{sequence}/`` with
+``trajectory.csv`` and ``cam/``; ``data/photorealistic.py`` writes their
+IMU and ground truth first, and ``{data_root}/{source}/camera_info.csv``
+gives the camera). PNG rasters are read by ``data/imageio.py``, which needs
+no OpenCV.
+
 Paths: the whole stream uploaded and run by ``run_sequence`` (default),
 streamed from the host in chunks (``--stream_chunk N``,
-``filter/streamed.py``), the image-in pipeline for ``--source rendered``
-(``--frontend fused``), and a batch of noise realizations of the circle
-(``--batch N``). Each is timed as a warm-up run, then a timed run that ends
-in ``torch.cuda.synchronize()``.
-
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP.md
-item: ``--source tartanair`` / ``peringlab`` (``data/photorealistic.py``)
-and ``--rerun_live`` (``utils/viz.py``).
+``filter/streamed.py``; ``--rerun_live`` logs each fetched chunk to the
+Rerun viewer), the image-in pipeline for an image source (``--frontend
+fused``), and a batch of noise realizations of the circle (``--batch N``).
+Each is timed as a warm-up run, then a timed run that ends in
+``torch.cuda.synchronize()``.
 """
 
 from __future__ import annotations
@@ -33,8 +38,10 @@ import time
 import numpy as np
 import torch
 
-from msckf_tpu_torch.config import NOISE_PRESETS, reference_experiment_config, unsupported
+from msckf_tpu_torch.config import NOISE_PRESETS, reference_experiment_config
+from msckf_tpu_torch.data import imageio
 from msckf_tpu_torch.data import parser as parsing
+from msckf_tpu_torch.data.photorealistic import generate_photorealistic
 from msckf_tpu_torch.data.rendered import generate_rendered_boxes, generate_rendered_circle
 from msckf_tpu_torch.data.stream import (
     build_image_stream, build_stream, match_camera_ticks, suggest_capacities, to_device,
@@ -42,6 +49,7 @@ from msckf_tpu_torch.data.stream import (
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence, generate_classic_sequence
 from msckf_tpu_torch.filter.msckf import FrameStats, make_initial_state, run_sequence
 from msckf_tpu_torch.filter.streamed import run_batched_streamed, run_sequence_streamed
+from msckf_tpu_torch.models.frontend import extract_sequence_features
 from msckf_tpu_torch.models.xfeat import (
     XFeatModel, detect_and_compute, init_params, load_xfeat_checkpoint, load_xfeat_npz,
 )
@@ -49,6 +57,7 @@ from msckf_tpu_torch.ops.device import resolve_device
 from msckf_tpu_torch.parallel.batched import batched_initial_state, batched_run_sequence
 from msckf_tpu_torch.pipeline import run_sequence_images
 from msckf_tpu_torch.utils.consistency import consistency_report
+from msckf_tpu_torch.utils import viz
 from msckf_tpu_torch.utils.metrics import compute_metrics, results_report
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,13 +66,11 @@ TOP_K = 300
 
 def _load_sequence(args, dev):
     """(imu_ts, gyro, acc, cam_ticks, kps, descs, scores, gt_R, gt_t,
-    cfg_overrides, images): cfg_overrides carries the source's camera.
-    ``images`` is a
-    (C, H, W) float32 array when the image-in pipeline runs (``--frontend
-    fused`` on the rendered source; kps, descs and scores are None then),
-    else None."""
-    if args.source in ("tartanair", "peringlab"):
-        unsupported("--source", args.source, "§1 item 11: data/photorealistic.py")
+    image_paths, cfg_overrides, images): image_paths is None for the
+    in-memory and synthetic sources; cfg_overrides carries the source's
+    camera. ``images`` is a (C, H, W) float32 array when the image-in
+    pipeline runs (``--frontend fused`` on an image source; kps, descs and
+    scores are None then), else None."""
     fused = args.frontend == "fused"
     a_nd, g_nd, a_rw, g_rw = NOISE_PRESETS[args.noise_level]
     if args.source == "rendered":
@@ -82,7 +89,7 @@ def _load_sequence(args, dev):
         )
         if fused:
             return (seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
-                    None, None, None, seq.poses_R, seq.poses_t, overrides,
+                    None, None, None, seq.poses_R, seq.poses_t, None, overrides,
                     seq.images.astype(np.float32))
         model = _xfeat_model(args, dev)
         kps, descs, scores = [], [], []
@@ -94,11 +101,12 @@ def _load_sequence(args, dev):
             descs.append(d[v])
             scores.append(s[v])
         return (seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
-                kps, descs, scores, seq.poses_R, seq.poses_t, overrides, None)
+                kps, descs, scores, seq.poses_R, seq.poses_t, None, overrides, None)
 
     # probe the dataset's marker file, not the directory: --save_results
     # creates {data_root}/{source}/{sequence}/..._noise/ for its outputs
-    if not os.path.isfile(f"{args.data_root}/synthetic/{args.sequence}/transforms_gt.csv"):
+    if args.source == "synthetic" and not os.path.isfile(
+            f"{args.data_root}/synthetic/{args.sequence}/transforms_gt.csv"):
         # no dataset on disk: generate the preset in memory. --gen_noise
         # preset drives the generated IMU noise from the noise preset
         gen_kwargs = {}
@@ -108,7 +116,16 @@ def _load_sequence(args, dev):
         seq = gen(rng=np.random.default_rng(42), **gen_kwargs)
         return (seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
                 seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores,
-                seq.poses_R, seq.poses_t, {}, None)
+                seq.poses_R, seq.poses_t, None, {}, None)
+
+    if args.source in ("tartanair", "peringlab"):
+        # the IMU and ground truth from the raw trajectory, with the preset's
+        # noise
+        generate_photorealistic(
+            args.source, f"{args.data_root}/{args.source}/{args.sequence}",
+            accelerometer_noise_density=a_nd, gyroscope_noise_density=g_nd,
+            accelerometer_random_walk=a_rw, gyroscope_random_walk=g_rw,
+        )
 
     p = parsing.Parser(args.source, args.sequence, base_path=args.data_root, gt=False)
     imu_ts, gyro, acc = parsing.imu_arrays(p.extract_imu())
@@ -116,15 +133,29 @@ def _load_sequence(args, dev):
     cams = p.extract_images()
     matched = match_camera_ticks(imu_ts, cams["timestamp"])
     cam_ticks = np.concatenate([[0], matched])  # frame 0 placeholder (skipped)
-    kps, descs, scores = [], [], []
-    for path in cams["image_path"]:
-        k, d, s = p.extract_synthetic_camera_measurements(path)
-        kps.append(k)
-        descs.append(d)
-        scores.append(s)
     n = len(cam_ticks)
+    image_paths = None
+    kps, descs, scores = [], [], []
+    if args.source == "synthetic":
+        for path in cams["image_path"]:
+            k, d, s = p.extract_synthetic_camera_measurements(path)
+            kps.append(k)
+            descs.append(d)
+            scores.append(s)
+    elif fused:
+        # the rasters as OpenCV's IMREAD_GRAYSCALE reads them; the CNN runs
+        # on the device inside the image-in pipeline
+        image_paths = list(cams["image_path"])[:n]
+        images = np.stack([imageio.imread_grayscale(q).astype(np.float32) for q in image_paths])
+        return (imu_ts, gyro, acc, cam_ticks, None, None, None, gt_R, gt_t, image_paths, {},
+                images)
+    else:
+        image_paths = list(cams["image_path"])
+        kps, descs, scores = extract_sequence_features(
+            image_paths, top_k=TOP_K, model=_xfeat_model(args, dev),
+            refine_subpix=args.refine_subpix, device=dev)
     return (imu_ts, gyro, acc, cam_ticks, kps[:n], descs[:n], scores[:n],
-            gt_R, gt_t, {}, None)
+            gt_R, gt_t, image_paths[:n] if image_paths else None, {}, None)
 
 
 def _xfeat_model(args, dev):
@@ -153,7 +184,8 @@ def _xfeat_model(args, dev):
 
 def _dataset_config(args, cfg, kps, descs):
     """Dataset-derived configuration: camera intrinsics from
-    ``{data_root}/{source}/camera_info.csv``, buffer capacities sized to the
+    ``{data_root}/{source}/camera_info.csv`` (a warning where a dataset
+    source lacks it), buffer capacities sized to the
     sequence (``suggest_capacities``; the overflow warning after the run
     keeps this honest), descriptor width from the data, padded to a
     multiple of 8 (zero padding leaves cosine similarity unchanged)."""
@@ -165,6 +197,12 @@ def _dataset_config(args, cfg, kps, descs):
             f"camera_info.csv: K = [fx {info['K'][0][0]}, fy {info['K'][1][1]}, "
             f"px {info['K'][0][2]}, py {info['K'][1][2]}], "
             f"{info['width']}x{info['height']}"
+        )
+    elif args.source not in ("synthetic", "rendered"):
+        print(
+            f"WARNING: {args.data_root}/{args.source}/camera_info.csv not found; "
+            f"using default intrinsics (fx {cfg.K[0][0]}) — metrics will be "
+            "wrong if the dataset camera differs"
         )
     caps = suggest_capacities(kps, max_camera_states=cfg.max_camera_states)
     dd = max((int(np.asarray(d).shape[1]) for d in descs if len(d)), default=cfg.desc_dim)
@@ -199,9 +237,10 @@ def _check_overflow(cfg, final) -> dict:
     return diag
 
 
-def _save_debug_images(out_dir, cfg, kps, scores, descs):
+def _save_debug_images(out_dir, cfg, kps, scores, descs, image_paths=None):
     """--log_images: per-frame keypoint overlays (radius ~ score) on the
-    camera canvas, each frame after the first beside the previous one with
+    frame's raster (on the camera canvas for a source without rasters),
+    each frame after the first beside the previous one with
     their mutual matches (``draw_matches``: the homography inliers and the
     previous frame's warped corners); where no homography is found, the
     matches are drawn as lines to the previous frame's keypoints."""
@@ -217,7 +256,12 @@ def _save_debug_images(out_dir, cfg, kps, scores, descs):
     prev = None
     for j in range(len(kps)):
         kp = np.asarray(kps[j])
-        img = np.full((cfg.height, cfg.width, 3), 32, np.uint8)
+        if image_paths is not None and j < len(image_paths):
+            img = cv2.imread(image_paths[j])
+            if img is None:
+                continue
+        else:
+            img = np.full((cfg.height, cfg.width, 3), 32, np.uint8)
         s = np.asarray(scores[j])
         smax = s.max() if len(s) and s.max() > 0 else 1.0
         for (x, y), sc in zip(kp, s):
@@ -246,15 +290,15 @@ def _fence(dev):
         torch.cuda.synchronize(dev)
 
 
-def _timed(run, dev):
-    """A warm-up run, then a timed run. Returns (the timed run's result,
-    warm-up seconds, timed seconds)."""
+def _timed(run, dev, **timed_kwargs):
+    """A warm-up run, then a timed run given ``timed_kwargs``. Returns (the
+    timed run's result, warm-up seconds, timed seconds)."""
     t0 = time.perf_counter()
     run()
     _fence(dev)
     warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = run()
+    res = run(**timed_kwargs)
     _fence(dev)
     return res, warm_s, time.perf_counter() - t0
 
@@ -307,10 +351,10 @@ def main(argv=None):
     ap.add_argument("--only_imu", action="store_true")
     ap.add_argument(
         "--frontend", default="fused", choices=["fused", "host"],
-        help="rendered source: 'fused' runs the XFeat CNN over the image "
-        "stack on the device inside the image-in pipeline; 'host' extracts "
-        "features frame by frame first (needed by --stream_chunk and "
-        "--log_images)",
+        help="image sources (rendered/tartanair/peringlab): 'fused' runs the "
+        "XFeat CNN over the image stack on the device inside the image-in "
+        "pipeline; 'host' extracts features frame by frame first (needed by "
+        "--stream_chunk and --log_images)",
     )
     ap.add_argument(
         "--refine_subpix", action="store_true",
@@ -331,7 +375,8 @@ def main(argv=None):
     )
     ap.add_argument(
         "--rerun_live", action="store_true",
-        help="stream telemetry to the Rerun viewer during the run (not ported)",
+        help="stream telemetry to the Rerun viewer live during the run (per "
+        "fetched chunk; requires --stream_chunk and rerun-sdk)",
     )
     ap.add_argument(
         "--stream_chunk", type=int, default=0,
@@ -345,8 +390,6 @@ def main(argv=None):
         "(torch.func.vmap on one device) and report per-sequence errors",
     )
     args = ap.parse_args(argv)
-    if args.rerun_live:
-        unsupported("--rerun_live", True, "§1 item 11: utils/viz.py")
     if args.log_images and args.frontend == "fused":
         # the overlays need host-side features
         print("--log_images: switching to --frontend host (overlays need "
@@ -374,7 +417,7 @@ def main(argv=None):
         return _run_batched(args, cfg, dev)
 
     (imu_ts, gyro, acc, cam_ticks, kps, descs, scores, gt_R, gt_t,
-     src_overrides, images) = _load_sequence(args, dev)
+     image_paths, src_overrides, images) = _load_sequence(args, dev)
     if images is not None:
         # the CNN's fixed top-k output sizes the buffers; XFeat's
         # descriptors are 64-d
@@ -384,6 +427,10 @@ def main(argv=None):
     if src_overrides:
         cfg = dataclasses.replace(cfg, **src_overrides)
 
+    if args.rerun_live and not args.stream_chunk:
+        print("--rerun_live requires --stream_chunk (live = per fetched "
+              "chunk); ignoring")
+    live_cb = {}
     if images is not None:
         if args.stream_chunk:
             print("--stream_chunk is not supported with --frontend fused; ignoring "
@@ -404,13 +451,22 @@ def main(argv=None):
         stream = build_stream(cfg, imu_ts, gyro, acc, cam_ticks, kps, descs, scores,
                               max_ticks=args.max_frames)
         if args.stream_chunk:
-            # host-resident stream, two chunks on the device at a time
-            def run():
+            # host-resident stream, two chunks on the device at a time; the
+            # timed run logs each fetched chunk live with --rerun_live
+            if args.rerun_live:
+                if viz.HAVE_RERUN:
+                    live = viz.LiveRerunStream(gt_R, gt_t, spawn=True)
+                    live_cb = dict(on_prefix=live.consume,
+                                   on_chunk=lambda start, out: live.consume(out))
+                else:
+                    print("rerun-sdk not installed; --rerun_live ignored")
+
+            def run(**live):
                 stats = FrameStats()
                 state = make_initial_state(cfg, stream.R_init, device=dev)
                 return run_sequence_streamed(cfg, state, stream.prefix, stream.frames,
                                              chunk_frames=args.stream_chunk, device=dev,
-                                             assume_camera=True, stats=stats), stats
+                                             assume_camera=True, stats=stats, **live), stats
         else:
             std = to_device(stream, cfg, device=dev)
 
@@ -420,7 +476,7 @@ def main(argv=None):
                 return run_sequence(cfg, state, std.prefix, std.frames, assume_camera=True,
                                     device=dev, stats=stats), stats
 
-    ((final, pre_out, fr_out), stats), warm_s, run_s = _timed(run, dev)
+    ((final, pre_out, fr_out), stats), warm_s, run_s = _timed(run, dev, **live_cb)
     n_frames, block = stream.frames["imu_ts"].shape
 
     def flat(name):
@@ -461,14 +517,18 @@ def main(argv=None):
 
     out_dir = f"{args.data_root}/{args.source}/{args.sequence}/{args.noise_level}_noise"
     if args.log_images:
-        _save_debug_images(f"{out_dir}/debug_images", cfg, kps, scores, descs)
+        _save_debug_images(f"{out_dir}/debug_images", cfg, kps, scores, descs, image_paths)
     if args.save_results:
         os.makedirs(out_dir, exist_ok=True)
         with open(f"{out_dir}/results.txt", "w") as f:
             f.write(report)
         _save_plots(m, out_dir)
-        print("the .rrd recording is not written: it waits for the port of "
-              "utils/viz.py (ROADMAP.md §1 item 11)")
+        # the .rrd recording, where rerun-sdk is installed
+        if viz.HAVE_RERUN:
+            viz.stream_to_rerun(gt_t, est_R, est_t, m, n_tracks=flat("n_tracks")[valid],
+                                n_cams=flat("n_cams")[valid],
+                                save_path=f"{out_dir}/recording.rrd")
+            print(f"rerun recording written to {out_dir}/recording.rrd")
         print(f"results written to {out_dir}")
     # for callers and tests: the resolved config, the diagnostics, the timed
     # run's counts and final state, the stream's (frames, ticks per frame,

@@ -3,13 +3,17 @@
 * ``import msckf_tpu_torch`` loads neither jax nor flax, and no file of the
   port or chip_smoke.py imports jax, flax or the JAX package; the runner
   and its modules load none of jax, the JAX package, pandas or OpenCV, and
-  ``python -m msckf_tpu_torch.runner --help`` runs without them;
+  ``python -m msckf_tpu_torch.runner --help`` runs without them; the
+  package and each module of the dataset-sources slice load none of jax,
+  flax, pandas, OpenCV, matplotlib or rerun;
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
   raise without a GPU instead of carrying on on the CPU: the filter's, the
   batched path's, the image front-end's and image-in pipeline's, the
   streamed runs', the checkpoint loader's and the runner's;
 * the compensated correction island, the last configuration ported, runs
-  one frame of a float32 filter as the JAX package's does; the settings
+  one frame of a float32 filter as the JAX package's does; any
+  ``prune_path`` but "masked" is the "cond" prune, as in the JAX package;
+  the settings
   ported with the gain solvers, the Gauss-Newton triangulation and the
   XLA-only forms run on the single and the batched path;
 * chip_smoke.py refuses to run without a GPU or without the package.
@@ -55,6 +59,33 @@ def test_import_leaves_jax_and_flax_out():
         "msckf_tpu_torch.data.rendered; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msckf_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+SOURCES_MODULES = ("msckf_tpu_torch", "msckf_tpu_torch.data.imageio",
+                   "msckf_tpu_torch.data.native_io", "msckf_tpu_torch.data.photorealistic",
+                   "msckf_tpu_torch.utils.viz", "msckf_tpu_torch.ops.camera",
+                   "msckf_tpu_torch.ops.geometry", "msckf_tpu_torch.filter.propagation",
+                   "msckf_tpu_torch.runner")
+
+
+def test_sources_modules_load_no_optional_package():
+    """In a fresh interpreter, the package, then each module of the
+    dataset-sources slice: after each import, none of the packages the
+    card's machine lacks (pandas, OpenCV, matplotlib, rerun) is loaded, nor
+    jax or flax."""
+    code = (
+        "import sys, importlib\n"
+        f"for m in {SOURCES_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "    bad = [n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'flax', 'msckf_tpu', 'pandas', 'cv2', 'matplotlib', 'rerun')]\n"
+        "    if bad:\n"
+        "        print(m, bad)\n"
+        "        sys.exit(1)\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
@@ -127,7 +158,8 @@ def test_streamed_checkpoint_and_runner_raise_without_gpu(monkeypatch, small, tm
 
 
 def _port_files():
-    files = sorted((REPO / "msckf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "msckf_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                                 REPO / "tests" / "torch_fixtures.py"]
     assert len(files) > 15
     return files
 
@@ -252,9 +284,8 @@ def _small_variant(small, overrides, config=mt.reference_experiment_config):
     {"gating_solver": "ns", "correction_dtype": "compensated"},
     {"correction_dtype": "compensated"},
 ])
-def test_unported_configurations_raise(small, overrides, monkeypatch):
-    """The compensated correction island, which raised until it was ported,
-    runs: a float32 filter at the small capacities over the circle's first
+def test_compensated_configurations_run(small, overrides, monkeypatch):
+    """The compensated correction island runs: a float32 filter at the small capacities over the circle's first
     UPDATE_FRAME frames on the port's CPU lane, then the next frame, the
     first with a real update (A is not zero), from that state in both
     packages. The counts and masks are equal, and the state is the JAX
@@ -299,6 +330,31 @@ def test_unported_configurations_raise(small, overrides, monkeypatch):
                                        atol=1e-4 * max(np.abs(w).max(), 1e-6), err_msg=k)
         else:
             np.testing.assert_array_equal(got[k], w, err_msg=k)
+
+
+def test_prune_path_other_is_cond(small):
+    """A prune_path other than "cond" and "masked" runs the "cond" prune,
+    as the JAX package does: over the small stream with a window of three
+    cameras, which saturates, every leaf of the final state and every
+    output bit for bit the "cond" run's."""
+    st = small[1]
+    std = to_device(st, small[0], device="cpu")
+    runs = {}
+    for path in ("cond", "other"):
+        cfg = _small_variant(small, {"max_camera_states": 3, "prune_path": path})
+        stats = mt.FrameStats()
+        state = mt.make_initial_state(cfg, st.R_init, device="cpu")
+        runs[path] = mt.run_sequence(cfg, state, std.prefix, std.frames, assume_camera=True,
+                                     device="cpu", stats=stats), stats
+    (cond, _, cout), cstats = runs["cond"]
+    (other, _, oout), ostats = runs["other"]
+    assert cstats.prunes > 0 and ostats.prunes == cstats.prunes
+    assert ostats.host_syncs == cstats.host_syncs
+    a, b = mt.state_to_numpy(other), mt.state_to_numpy(cond)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    for x, y in zip(oout, cout):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
 
 
 @pytest.mark.parametrize("overrides", [

@@ -19,10 +19,14 @@
   the double-word island corrects on real updates, and the metrics and
   diagnostics equal the float64 island's (the float32 filter rounds both
   chains' results to the same state);
-* the sources and settings not ported raise ``NotImplementedError`` with
-  their ROADMAP.md item.
+* the dataset sources and the live stream, which raised until they were
+  ported: ``--source tartanair`` (fused front-end) and ``--source
+  peringlab`` (host front-end) on small datasets of their formats, and
+  ``--rerun_live`` without rerun-sdk, which prints the JAX runner's messages
+  and runs, with and without ``--stream_chunk``.
 """
 
+import argparse
 import dataclasses
 
 import jax
@@ -36,6 +40,7 @@ from msckf_tpu_torch.data.parser import save_sequence_csv
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 from msckf_tpu_torch.filter.state import state_to_numpy
 
+from tests.torch_fixtures import write_orbit_dataset
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARGS = ["--source", "synthetic", "--max_frames", "400", "--dtype", "float64"]
@@ -43,6 +48,17 @@ ARGS = ["--source", "synthetic", "--max_frames", "400", "--dtype", "float64"]
 
 def _arrays(m):
     return {f.name: np.asarray(getattr(m, f.name)) for f in dataclasses.fields(m)}
+
+
+def _same_run(a, b):
+    """Two runner results bitwise equal: diagnostics, metrics, final state."""
+    assert a.diag == b.diag
+    got = _arrays(a)
+    for name, v in _arrays(b).items():
+        np.testing.assert_array_equal(got[name], v, err_msg=name)
+    sa, sb = state_to_numpy(a.final), state_to_numpy(b.final)
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
 
 
 @pytest.fixture(scope="module")
@@ -77,13 +93,7 @@ def test_stream_chunk_equals_monolithic(runs, tmp_path):
     _, tm = runs
     ts = trunner.main(ARGS + ["--data_root", str(tmp_path), "--device", "cpu",
                               "--stream_chunk", "7"])
-    assert ts.diag == tm.diag
-    got = _arrays(ts)
-    for name, v in _arrays(tm).items():
-        np.testing.assert_array_equal(got[name], v, err_msg=name)
-    sa, sb = state_to_numpy(ts.final), state_to_numpy(tm.final)
-    for k in sa:
-        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+    _same_run(ts, tm)
     n_chunks = -(-tm.stats.frames // 7)
     assert ts.stats.host_syncs == tm.stats.host_syncs + n_chunks
 
@@ -155,11 +165,47 @@ def test_compensated_island_runs(tmp_path, monkeypatch):
     assert np.linalg.norm(mc.ate[-1]) < 0.05
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--source", "tartanair"], "item 11"),
-    (["--source", "peringlab"], "item 11"),
-    (["--rerun_live"], "item 11"),
-])
-def test_unported_settings_raise(extra, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        trunner.main(ARGS + ["--device", "cpu", "--data_root", str(tmp_path)] + extra)
+@pytest.mark.parametrize("case", ["tartanair", "peringlab", "rerun_live"])
+def test_sources_and_rerun_live_run(case, tmp_path, capsys):
+    """12 frames of the boxes orbit at 96 x 64 in the TartanAir and the
+    PeringLab format: the runner writes the dataset's IMU and ground truth,
+    takes camera_info.csv's camera (and warns without it) and ends with a
+    finite trajectory; with --log_images it draws on the frames' rasters. Without rerun-sdk,
+    --rerun_live prints the JAX runner's message and runs."""
+    root = str(tmp_path)
+    if case == "rerun_live":
+        args = ["--source", "synthetic", "--max_frames", "100", "--device", "cpu",
+                "--data_root", root, "--rerun_live"]
+        m = trunner.main(args)
+        assert "--rerun_live requires --stream_chunk (live = per fetched chunk); ignoring" \
+            in capsys.readouterr().out
+        ms = trunner.main(args + ["--stream_chunk", "4"])
+        assert "rerun-sdk not installed; --rerun_live ignored" in capsys.readouterr().out
+        _same_run(ms, m)
+        return
+    write_orbit_dataset(root, case, "orbit", n_cam=12, width=96, height=64, fxy=72.0)
+    # the PeringLab run draws its overlays on the rasters (--log_images
+    # takes the host front-end)
+    extra = ["--frontend", "fused"] if case == "tartanair" else ["--log_images"]
+    m = trunner.main(["--source", case, "--sequence", "orbit", "--max_frames", "1000",
+                      "--noise_level", "low", "--device", "cpu", "--data_root", root] + extra)
+    assert np.isfinite(m.ate).all() and np.isfinite(m.aoe).all()
+    assert (m.cfg.width, m.cfg.height, m.cfg.K[0][0]) == (96, 64, 72.0)
+    assert m.blocks[0] == 12  # frame blocks after the IMU prefix
+    for f in ("imu.csv", "imu_gt.csv", "transforms_gt.csv", "camera.csv"):
+        assert (tmp_path / case / "orbit" / f).is_file()
+    if case == "tartanair":
+        # without camera_info.csv the runner warns as the JAX runner does
+        (tmp_path / case / "camera_info.csv").unlink()
+        capsys.readouterr()
+        trunner._dataset_config(argparse.Namespace(data_root=root, source=case), m.cfg,
+                                [np.zeros((3, 2))], [np.zeros((3, 64))])
+        assert "camera_info.csv not found; using default intrinsics" in capsys.readouterr().out
+    if case == "peringlab":
+        import cv2
+
+        drawn = sorted((tmp_path / case / "orbit" / "low_noise" / "debug_images").iterdir())
+        assert len(drawn) == 14  # one a camera.csv row: the 3-frame prefix, then 11
+        first = cv2.imread(str(drawn[0]))
+        # the frame's raster under the keypoints, not the blank canvas
+        assert first.shape == (64, 96, 3) and len(np.unique(first)) > 50

@@ -313,12 +313,12 @@ def test_correction_terms_ns_matches_lu_under_vmap(a_scale):
         np.testing.assert_allclose(P_ns.numpy(), np.asarray(jP), rtol=2e-4, atol=1e-7)
 
 
-def test_correction_dtype_none_is_the_plain_chain_and_compensated_raises(monkeypatch):
+def test_correction_dtype_none_and_compensated_are_the_plain_chain(monkeypatch):
     """Any ``correction_dtype`` but "float64" and "compensated" is the plain
     chain in the filter's type (the JAX package's tests pass "" and "none").
-    "compensated", which raised until the island was ported, is the plain
-    chain too inside ``_correction_terms``, as in the JAX package: the island
-    is chosen by ``apply_correction``, for a float32 filter only."""
+    "compensated" is the plain chain too inside ``_correction_terms``, as in
+    the JAX package: the island is chosen by ``apply_correction``, for a
+    float32 filter only."""
     import msckf_tpu_torch.filter.update as up
     from msckf_tpu_torch.filter.state import init_state
 
