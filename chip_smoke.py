@@ -96,9 +96,9 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               per frame; CUDA-event times of detect_and_compute on one frame
               and of the CNN stage over the stack, the filter alone, the
               image loop's frames/s (two runs, in turns with the synthetic
-              default loop when main ran), and a 10-frame profile.
+              default loop when main ran), and a 5-frame profile.
 11. runner  — the port's CLI, msckf_tpu_torch.runner.main, in-process:
-              1,200 ticks of the synthetic circle (the runner's dataset
+              800 ticks of the synthetic circle (the runner's dataset
               capacities), then
               with --stream_chunk 16 and 64: final error < 0.2 m, no
               overflow, launches equal to twice the loop's prediction (the
@@ -159,6 +159,26 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               LiveRerunStream with a recording sink on 400 ticks of the
               circle streamed in 16-frame chunks (one record a tick, the
               run's positions and counts, launches as predicted).
+14. train   — the XFeat trainer (models/train_xfeat.py, float32, TF32 off):
+              (a) one batch_loss and backward at the CLI's width (batch 8,
+              256 x 256, the committed weights, a seeded PairPool batch) on
+              the card against the CPU: loss and aux, every parameter's
+              gradient and the new batch statistics within TRAIN_TOL, and
+              the same step with TF32 on beyond at least one limit; the
+              optimizer (ClippedAdamW) on both from the same float64
+              gradients within 1e-12; (b) train() from scratch, 200 steps,
+              batch 8, 256 x 256, a 32-pair pool refreshed by 8 every 50
+              steps: every loss finite, the mean of the last 20 under 0.8x
+              that of the first 20; steps/s, images/s, the pool's host share
+              and the peak allocation of the loop, and one step's time by
+              CUDA events; (c) the frozen benchmark
+              (weights/frontend_eval_v1.npz) with the committed weights on
+              the card and the CPU: precisions within 0.01 and matches/pair
+              within 1.0 of each other, at or above the gates (hard 0.60,
+              mild 0.52, 60 matches/pair); (d) save_npz_params of (b)'s model
+              and load_xfeat_npz on the card: detect_and_compute bitwise
+              the in-memory model's; (e) train_xfeat.main(--steps 20
+              --pool 8) in-process on the card, its weights loaded.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -246,7 +266,7 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers", "images", "runner", "island", "sources")
+          "solvers", "images", "runner", "island", "sources", "train")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 # ticks of the float64 card-vs-CPU parity runs (phases parity and solvers;
 # 600 until the island phase joined the script, cut to keep it in its time)
@@ -299,9 +319,9 @@ def time_ms(torch, fn, reps: int = 25, warmup: int = 3) -> float:
 
 
 WINDOWS = 6  # profiler windows kernel_only_ms may take for one reading
-# camera frames of each profile (20 until phase sources joined the script;
-# cut to keep it in its time)
-PROFILE_FRAMES = 10
+# camera frames of each profile (20 until phase sources joined the script,
+# 10 until phase train did; cut to keep the script in its time)
+PROFILE_FRAMES = 5
 
 
 def kernel_only_ms(torch, fn, match=None, reps: int = 20):
@@ -2169,10 +2189,11 @@ def phase_images(torch, pkg, K, default=None):
 # phase 11: the runner, chunked streaming and checkpoint/resume
 # ---------------------------------------------------------------------------
 
-# half the synthetic circle (the runner's default is the whole 2,400 ticks):
-# the whole script with 2,400 took 1,248.3 s, over its 1,200 s, on a host
-# whose default loop ran at 17.2 frames/s
-RUNNER_TICKS = 1200
+# a third of the synthetic circle (the runner's default is the whole 2,400
+# ticks): the whole script with 2,400 took 1,248.3 s, over its 1,200 s, on a
+# host whose default loop ran at 17.2 frames/s; with 1,200 it took 1,028.8 s
+# on one at 17.0 frames/s, before phase train joined it
+RUNNER_TICKS = 800
 RUNNER_CHUNKS = (16, 64)
 # the batch and the rendered runs were cut from 600 and 800 ticks when the
 # island phase joined the script, to keep it in its time
@@ -3193,11 +3214,231 @@ def phase_sources(torch, pkg, K):
     sources_live(torch, pkg, K)
 
 
-def profile_window(torch, run, n_frames: int, label: str):
+# ---------------------------------------------------------------------------
+# phase train: the XFeat trainer (models/train_xfeat.py), float32, TF32 off
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SIZE = 8, 256  # the trainer CLI's defaults
+# (b): from scratch, 200 steps, a 32-pair pool refreshed by 8 every 50 steps
+TRAIN_RUN = dict(steps=200, batch=TRAIN_BATCH, size=TRAIN_SIZE, lr=1e-3, pool_pairs=32,
+                 refresh_every=50, refresh_n=8, seed=0)
+TRAIN_WINDOW = 20  # steps averaged at each end of (b)'s loss curve
+TRAIN_CLI = ["--steps", "20", "--pool", "8"]  # (e), the CLI's other defaults
+# (a) card against CPU, float32, one step from the committed weights: each
+# tensor's largest error over its largest magnitude (cuDNN's and oneDNN's
+# float32 convolutions round differently; the loss's softmax at temperature
+# 0.1 and the batch-statistics backward amplify that)
+# (four card runs: loss and aux 2.8e-7, the worst gradient 5.1e-4 in
+# block1_0's kernel, median 3.8e-6 to 4.7e-6, statistics 5.1e-7). The same
+# step with TF32 on is the control and must break at least one limit (it
+# read loss 2.7e-5, gradient 1.0e-1, statistics 1.5e-3; the loss limit was
+# then cut from 1e-4 to 1e-5 so that it catches TF32 too).
+TRAIN_TOL = {"loss": 1e-5, "grad": 1e-3, "stats": 1e-4}
+TRAIN_PROFILE_STEPS = 3
+TRAIN_OPT_TOL = 1e-12  # (a) the optimizer, card against CPU, from the same float64 gradients
+FROZEN_TOL = {"precision": 0.01, "matches": 1.0}  # (c) card against CPU, per distribution
+FROZEN_GATES = {"hard": 0.60, "mild": 0.52, "matches": 60}  # tests/test_xfeat_frozen_eval.py
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+
+
+def train_step_card_vs_cpu(torch, tx):
+    """(a): one batch_loss and backward from the committed weights on the
+    card and on the CPU, the same seeded batch at the CLI's width, and the
+    control: the card's step with TF32 on, which the limits must catch; then
+    the optimizer on both from the same float64 gradients."""
+    from msckf_tpu_torch.models.xfeat import load_xfeat_npz
+    from msckf_tpu_torch.ops.precision import set_f32_matmuls
+
+    t0 = time.perf_counter()
+    pool = tx.PairPool(np.random.default_rng(0), TRAIN_BATCH, TRAIN_SIZE)
+    batch = pool.draw(TRAIN_BATCH)
+    log(f"train (a): a {TRAIN_BATCH}-pair pool at {TRAIN_SIZE} x {TRAIN_SIZE} in "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    res = {}
+    for run, dev in (("tf32", DEVICE), (DEVICE, DEVICE), ("cpu", "cpu")):
+        model = load_xfeat_npz(str(WEIGHTS), device=dev)
+        inputs = [torch.as_tensor(a, device=dev) for a in batch]
+        if run == "tf32":  # batch_loss's body, past its with_f32_matmuls
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                loss, aux = tx.batch_loss.__wrapped__(model, *inputs)
+                loss.backward()
+            finally:
+                set_f32_matmuls()
+        else:
+            loss, aux = tx.batch_loss(model, *inputs)
+            loss.backward()
+        res[run] = (loss, aux, {n: p.grad for n, p in model.named_parameters()},
+                    dict(model.named_buffers()))
+    p0 = [p.detach().double().numpy() for p in model.parameters()]  # the CPU model's
+    lc, ac, gc, sc = res["cpu"]
+
+    def errors(run):
+        lg, ag, gg, sg = res[run]
+        errs = {"loss": _rel_err(lg, lc)}
+        errs.update({f"aux {k}": _rel_err(ag[k], ac[k]) for k in ac})
+        return (errs, {n: _rel_err(gg[n], gc[n]) for n in gc},
+                {n: _rel_err(sg[n], sc[n]) for n in sc})
+
+    ctl = [max(e.values()) for e in errors("tf32")]
+    broken = [k for k, e in zip(("loss", "grad", "stats"), ctl) if e > TRAIN_TOL[k]]
+    log(f"train (a): the control, the card's step with TF32 on, against the CPU: loss and aux "
+        f"{ctl[0]:.3e}, worst gradient {ctl[1]:.3e}, statistics {ctl[2]:.3e}; over the "
+        f"limits: {', '.join(broken) or 'none'}")
+    check(broken, "train (a): the step with TF32 on stays within every limit, so the "
+          "limits would not catch it")
+    errs, grad_errs, stat_errs = errors(DEVICE)
+    worst_loss = max(errs.values())
+    worst_g = max(grad_errs, key=grad_errs.get)
+    worst_s = max(stat_errs, key=stat_errs.get)
+    log(f"train (a): one step at batch {TRAIN_BATCH}, {TRAIN_SIZE} x {TRAIN_SIZE}, float32, "
+        f"card against CPU: loss {float(lc.detach()):.6f}, aux "
+        + ", ".join(f"{k} {float(v.detach()):.6f}" for k, v in ac.items())
+        + "; relative errors " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    log(f"train (a): gradients of {len(gc)} parameters: largest relative error "
+        f"{grad_errs[worst_g]:.3e} ({worst_g}), median {np.median(list(grad_errs.values())):.3e}; "
+        f"new batch statistics of {len(sc)} buffers: largest {stat_errs[worst_s]:.3e} "
+        f"({worst_s})")
+    check(worst_loss <= TRAIN_TOL["loss"],
+          f"train (a): loss or aux differs by {worst_loss:.3e} (limit {TRAIN_TOL['loss']})")
+    check(grad_errs[worst_g] <= TRAIN_TOL["grad"],
+          f"train (a): the gradient of {worst_g} differs by {grad_errs[worst_g]:.3e} "
+          f"(limit {TRAIN_TOL['grad']})")
+    check(stat_errs[worst_s] <= TRAIN_TOL["stats"],
+          f"train (a): the batch statistics {worst_s} differ by {stat_errs[worst_s]:.3e} "
+          f"(limit {TRAIN_TOL['stats']})")
+
+    # the optimizer chain on both devices from identical float64 gradients:
+    # three steps of a three-step schedule, the global norm above the clip
+    # at the first and below it after
+    rng = np.random.default_rng(1)
+    grads = [[rng.normal(size=a.shape) * sc / np.sqrt(a.size * len(p0)) for a in p0]
+             for sc in (3.0, 0.5, 0.2)]
+    finals = {}
+    for dev in (DEVICE, "cpu"):
+        ps = [torch.tensor(a, device=dev, requires_grad=True) for a in p0]
+        opt = tx.ClippedAdamW(ps, 1e-3, len(grads))
+        for gs in grads:
+            for p, g in zip(ps, gs):
+                p.grad = torch.tensor(g, device=dev)
+            opt.step()
+        finals[dev] = ps
+    opt_err = max(float((a.detach().cpu() - b.detach()).abs().max())
+                  for a, b in zip(finals[DEVICE], finals["cpu"]))
+    log(f"train (a): ClippedAdamW, 3 steps on {len(p0)} float64 tensors from the same "
+        f"gradients: card against CPU within {opt_err:.3e}")
+    check(opt_err <= TRAIN_OPT_TOL,
+          f"train (a): the optimizer differs by {opt_err:.3e} (limit {TRAIN_OPT_TOL})")
+
+
+def phase_train(torch):
+    """The XFeat trainer on the card: (a) a step and the optimizer against
+    the CPU, (b) a training run from scratch, (c) the frozen benchmark
+    against the CPU, (d) a weights round trip, (e) the CLI."""
+    import tempfile
+
+    from msckf_tpu_torch.models import frontend_eval as fe
+    from msckf_tpu_torch.models import train_xfeat as tx
+    from msckf_tpu_torch.models.xfeat import detect_and_compute, load_xfeat_npz
+
+    train_step_card_vs_cpu(torch, tx)
+
+    # (b) from scratch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, tlog = tx.train(**TRAIN_RUN, device=DEVICE)
+    call_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - start_bytes
+    losses = tlog.losses
+    steps, imgs = TRAIN_RUN["steps"], 2 * TRAIN_RUN["batch"]
+    check(len(losses) == steps and np.isfinite(losses).all(),
+          f"train (b): {int(np.sum(~np.isfinite(losses)))} non-finite losses")
+    first, last = float(losses[:TRAIN_WINDOW].mean()), float(losses[-TRAIN_WINDOW:].mean())
+    log(f"train (b): {steps} steps from scratch (batch {TRAIN_RUN['batch']}, "
+        f"{TRAIN_RUN['size']} x {TRAIN_RUN['size']}, pool {TRAIN_RUN['pool_pairs']}): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, mean of the first {TRAIN_WINDOW} {first:.4f}, "
+        f"of the last {last:.4f} ({last / first:.3f}x)")
+    check(last < 0.8 * first, f"train (b): no learning: {first:.4f} -> {last:.4f}")
+    log(f"train (b): the loop {tlog.seconds:.2f} s: {steps / tlog.seconds:.2f} steps/s, "
+        f"{steps * imgs / tlog.seconds:.1f} images/s; the pool's draws and refreshes "
+        f"{tlog.pool_seconds:.2f} s on the host ({tlog.pool_seconds / tlog.seconds * 100:.1f} % "
+        f"of the loop); the call {call_s:.1f} s with the pool's generation; peak allocation "
+        f"{peak / 2**20:.1f} MiB")
+    pool = tx.PairPool(np.random.default_rng(2), TRAIN_RUN["batch"], TRAIN_RUN["size"])
+    batch = [torch.as_tensor(a, device=DEVICE) for a in pool.draw(TRAIN_RUN["batch"])]
+    timed = copy.deepcopy(model)
+    opt = tx.ClippedAdamW(timed.parameters(), TRAIN_RUN["lr"], 1000)
+    step_ms = time_ms(torch, lambda: tx.train_step(timed, opt, *batch), reps=20)
+    # the convolutions' operations: the forward's, counted by conv_flops on
+    # an eval-mode copy, and twice that backward (input and weight gradients)
+    x = torch.cat(batch[:2])[:, None]
+    flops = 3.0 * conv_flops(torch, copy.deepcopy(timed).eval(), x)[0]
+    bound, _ = bound_ms(0.0, flops, "float32")
+    log(f"train (b): one step by CUDA events (no draw, inputs on the card): {step_ms:.3f} ms, "
+        f"{1e3 / step_ms:.1f} steps/s, {imgs * 1e3 / step_ms:.0f} images/s; its convolutions "
+        f"{flops / 1e9:.2f} GFLOP, bound {bound:.3f} ms (float32, 67 TFLOP/s), "
+        f"{bound / step_ms * 100:.1f} % of the step")
+
+    def steps():
+        for _ in range(TRAIN_PROFILE_STEPS):
+            tx.train_step(timed, opt, *batch)
+
+    profile_window(torch, steps, TRAIN_PROFILE_STEPS, "train", unit="step")
+
+    # (c) the frozen benchmark with the committed weights, card and CPU
+    frozen = {}
+    for dev in (DEVICE, "cpu"):
+        m = load_xfeat_npz(str(WEIGHTS), device=dev)
+        t0 = time.perf_counter()
+        frozen[dev] = {h: fe.frozen_match_precision(m, hard=h == "hard") for h in ("hard", "mild")}
+        log(f"train (c): frozen benchmark on {dev}: " + ", ".join(
+            f"{h} {p:.4f} ({n:.2f} matches/pair)" for h, (p, n) in frozen[dev].items())
+            + f" in {time.perf_counter() - t0:.1f} s")
+    for h in ("hard", "mild"):
+        (pg, ng), (pc, nc) = frozen[DEVICE][h], frozen["cpu"][h]
+        check(abs(pg - pc) <= FROZEN_TOL["precision"] and abs(ng - nc) <= FROZEN_TOL["matches"],
+              f"train (c): {h}: card {pg:.4f} ({ng:.2f}) against CPU {pc:.4f} ({nc:.2f})")
+        check(pg >= FROZEN_GATES[h] and ng >= FROZEN_GATES["matches"],
+              f"train (c): {h}: {pg:.4f} ({ng:.2f} matches/pair) under the gates")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (d) the trained weights through an .npz and back, on the card
+        path = f"{tmp}/trained.npz"
+        tx.save_npz_params(path, model)
+        back = load_xfeat_npz(path, device=DEVICE)
+        with np.load(fe.FIXTURE_V1) as data:
+            frame = torch.as_tensor(data["hard_img1"][0].astype(np.float32), device=DEVICE)
+        a = detect_and_compute(model, frame, top_k=fe.TOP_K)
+        b = detect_and_compute(back, frame, top_k=fe.TOP_K)
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              "train (d): the reloaded weights' detect_and_compute differs from the model's")
+        log(f"train (d): save_npz_params -> load_xfeat_npz on the card: detect_and_compute "
+            f"bitwise the trained model's ({int(a[3].sum())} valid keypoints)")
+
+        # (e) the CLI, in-process, on the card
+        out = f"{tmp}/cli/xfeat.npz"
+        t0 = time.perf_counter()
+        tx.main([*TRAIN_CLI, "--out", out])
+        cli_s = time.perf_counter() - t0
+        m = load_xfeat_npz(out, device=DEVICE)
+        check(all(torch.isfinite(t).all() for t in m.state_dict().values()),
+              "train (e): the CLI's weights are not finite")
+        log(f"train (e): train_xfeat.main({' '.join(TRAIN_CLI)}) in {cli_s:.1f} s; its "
+            f"weights load on the card")
+
+
+def profile_window(torch, run, n_frames: int, label: str, unit: str = "frame"):
     """Device busy share and the largest device-time items over one run of
-    ``n_frames`` camera frames (torch.profiler, device activity only: the
-    host's op events would cost more to record and sort than the run; a
-    warm-up run first)."""
+    ``n_frames`` camera frames, or other ``unit``s (torch.profiler, device
+    activity only: the host's op events would cost more to record and sort
+    than the run; a warm-up run first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3214,16 +3455,16 @@ def profile_window(torch, run, n_frames: int, label: str):
     if busy_ms <= 0:
         log(f"{label} profile: the profiler recorded no device time; busy share not measured")
         return
-    C = n_frames
+    C, u = n_frames, unit
     n_kernels = sum(e.count for e in dev)
     top = sorted(dev, key=lambda e: -e.device_time_total)[:8]
-    log(f"{label} profile: {C} frames, {wall_ms / C:.3f} ms/frame under the profiler, device "
-        f"busy {busy_ms / C:.3f} ms/frame ({busy_ms / wall_ms * 100:.1f}% busy, "
-        f"{100 - busy_ms / wall_ms * 100:.1f}% idle), {n_kernels / C:.0f} device ops/frame "
+    log(f"{label} profile: {C} {u}s, {wall_ms / C:.3f} ms/{u} under the profiler, device "
+        f"busy {busy_ms / C:.3f} ms/{u} ({busy_ms / wall_ms * 100:.1f}% busy, "
+        f"{100 - busy_ms / wall_ms * 100:.1f}% idle), {n_kernels / C:.0f} device ops/{u} "
         f"(the profile took {time.perf_counter() - start:.1f} s)")
     for e in top:
-        log(f"{label} profile:   {e.device_time_total / 1e3 / C:.4f} ms/frame  "
-            f"{e.count / C:.1f}/frame  {e.key[:90]}")
+        log(f"{label} profile:   {e.device_time_total / 1e3 / C:.4f} ms/{u}  "
+            f"{e.count / C:.1f}/{u}  {e.key[:90]}")
 
 
 # ---------------------------------------------------------------------------
@@ -3352,6 +3593,9 @@ def main(argv=None) -> int:
         phase_island(torch, pkg, K, seq, driven, batched_f64, beside=sources)
     elif sources is not None:
         sources()
+    if "train" in phases:
+        phase("train")
+        phase_train(torch)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

@@ -10,6 +10,9 @@ The CLI is ``python -m msckf_tpu_torch.runner`` (synthetic, rendered,
 TartanAir- and PeringLab-format sources; ``data/imageio.py`` reads PNG
 rasters without OpenCV); ``filter/streamed.py`` streams sequences longer
 than device memory and ``utils/checkpoint.py`` saves and restores a state.
+The XFeat front-end trains on the self-supervised pairs of
+``models/selfsup.py`` (``python -m msckf_tpu_torch.models.train_xfeat``)
+and is scored on the frozen benchmark of ``models/frontend_eval.py``.
 See ROADMAP.md for what is ported.
 """
 
@@ -33,6 +36,15 @@ from msckf_tpu_torch.filter.state import (
     state_to_numpy,
 )
 from msckf_tpu_torch.models.frontend import FeatureExtractor
+from msckf_tpu_torch.models.frontend_eval import frozen_match_precision
+from msckf_tpu_torch.models.selfsup import make_batch
+from msckf_tpu_torch.models.train_xfeat import (
+    ClippedAdamW,
+    PairPool,
+    save_npz_params,
+    train,
+    train_step,
+)
 from msckf_tpu_torch.models.xfeat import (
     XFeatModel,
     batched_detect_and_compute,
@@ -75,6 +87,13 @@ __all__ = [
     "detect_and_compute",
     "batched_detect_and_compute",
     "load_xfeat_npz",
+    "make_batch",
+    "PairPool",
+    "ClippedAdamW",
+    "train_step",
+    "train",
+    "save_npz_params",
+    "frozen_match_precision",
     "fused_frame_step",
     "run_sequence_images",
 ]

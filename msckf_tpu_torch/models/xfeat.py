@@ -25,8 +25,10 @@ sampled bicubic), L2 normalization. It takes one image (H, W) or a stack
 (N, H, W); a stack is one batched CNN call, post-processed on the batch
 axis (one flattened gather per tap, no loop over frames).
 
-Only inference is ported: BasicLayer's batch-statistics branch belongs to
-the trainer, which is not ported yet.
+BasicLayer has the JAX package's two branches: in eval mode (every
+inference path, ``detect_and_compute`` included) it normalizes by the stored
+running statistics; in training mode (``models/train_xfeat.py``) by the
+batch statistics, updating the running ones.
 """
 
 from __future__ import annotations
@@ -41,8 +43,15 @@ from msckf_tpu_torch.ops.precision import with_f32_matmuls
 
 
 class BasicLayer(nn.Module):
-    """Conv2d(bias=False) + BatchNorm(affine=False, running statistics) +
-    ReLU, at inference."""
+    """Conv2d(bias=False) + BatchNorm(affine=False) + ReLU.
+
+    In eval mode it normalizes by the running statistics ``bn_mean`` and
+    ``bn_var``. In training mode it normalizes by the batch mean and the
+    biased variance over (N, H, W), with gradients through both, and
+    updates the running statistics to ``0.9 * old + 0.1 * batch`` with that
+    same biased variance (``msckf_tpu/models/xfeat.py:75-82``; not
+    ``nn.BatchNorm2d``, whose running variance is unbiased).
+    """
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, stride: int = 1,
                  padding: int = 1, dilation: int = 1):
@@ -54,7 +63,15 @@ class BasicLayer(nn.Module):
 
     def forward(self, x):
         x = self.conv(x)
-        x = (x - self.bn_mean[:, None, None]) / torch.sqrt(self.bn_var[:, None, None] + 1e-5)
+        if self.training:
+            m = x.mean(dim=(0, 2, 3))
+            v = ((x - m[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+            with torch.no_grad():
+                self.bn_mean.copy_(0.9 * self.bn_mean + 0.1 * m)
+                self.bn_var.copy_(0.9 * self.bn_var + 0.1 * v)
+            x = (x - m[:, None, None]) / torch.sqrt(v[:, None, None] + 1e-5)
+        else:
+            x = (x - self.bn_mean[:, None, None]) / torch.sqrt(self.bn_var[:, None, None] + 1e-5)
         return F.relu(x)
 
 
@@ -260,6 +277,9 @@ def detect_and_compute(model: XFeatModel, image: torch.Tensor, top_k: int = 300,
     heatmap neighbourhood (offset in [-1/2, 1/2] px). Descriptors and scores
     stay sampled at the integer peak.
     """
+    if model.training:
+        raise ValueError("detect_and_compute needs the model in eval mode (model.eval()): "
+                         "training mode would normalize by batch statistics and update them")
     dev = next(model.parameters()).device
     check_on_device(image, dev, "the image")
     single = image.ndim == 2
@@ -344,16 +364,25 @@ def batched_detect_and_compute(model: XFeatModel, images: torch.Tensor, top_k: i
     return detect_and_compute(model, images, top_k=top_k, refine_subpix=refine_subpix)
 
 
+# the standard deviation of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+
+
 def init_params(generator: torch.Generator, device=None) -> XFeatModel:
-    """A model with random weights drawn from ``generator`` (Flax's default
-    initializers: LeCun-normal kernels, zero biases, batch statistics mean 0
-    and variance 1), on ``device`` (the GPU unless ``device="cpu"``)."""
+    """A model with random weights drawn from ``generator``, in eval mode on
+    ``device`` (the GPU unless ``device="cpu"``). The distributions are
+    Flax's defaults, which the JAX package's trainer starts from: kernels
+    ``lecun_normal`` (a unit normal truncated to [-2, 2], scaled by
+    ``1 / sqrt(fan_in) / 0.87962566`` so that the variance is ``1 /
+    fan_in``), zero biases, batch statistics mean 0 and variance 1. The
+    draws are torch's, not JAX's."""
     model = XFeatModel()
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("weight"):
                 fan_in = p.shape[1] * p.shape[2] * p.shape[3]
-                p.copy_(torch.randn(p.shape, generator=generator) / np.sqrt(fan_in))
+                nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                p.mul_(1.0 / np.sqrt(fan_in) / _TRUNC_STD)
             else:
                 p.zero_()
     return model.to(resolve_device(device)).eval()
@@ -395,6 +424,26 @@ def state_dict_from_flax(variables: dict) -> dict:
         sd[f"{name}.weight"] = t(params[name]["kernel"]).permute(3, 2, 0, 1)
         sd[f"{name}.bias"] = t(params[name]["bias"])
     return {k: v.contiguous() for k, v in sd.items()}
+
+
+def npz_arrays(state_dict: dict) -> dict:
+    """The inverse of :func:`state_dict_from_flax`, flattened: the module's
+    ``state_dict`` as the ``.npz`` arrays of the JAX package's trainer (keys
+    ``params/<module>/conv/kernel`` in HWIO, ``batch_stats/<module>/bn_mean``),
+    in its dtype."""
+
+    def a(t, hwio=False):
+        return (t.permute(2, 3, 1, 0) if hwio else t).detach().cpu().contiguous().numpy()
+
+    out = {}
+    for name, *_ in _LAYERS:
+        out[f"params/{name}/conv/kernel"] = a(state_dict[f"{name}.conv.weight"], hwio=True)
+        out[f"batch_stats/{name}/bn_mean"] = a(state_dict[f"{name}.bn_mean"])
+        out[f"batch_stats/{name}/bn_var"] = a(state_dict[f"{name}.bn_var"])
+    for name, *_ in _CONVS:
+        out[f"params/{name}/kernel"] = a(state_dict[f"{name}.weight"], hwio=True)
+        out[f"params/{name}/bias"] = a(state_dict[f"{name}.bias"])
+    return out
 
 
 def load_xfeat_npz(path: str, device=None) -> XFeatModel:

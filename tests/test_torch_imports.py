@@ -1,6 +1,7 @@
 """Import and device rules of the PyTorch port.
 
-* ``import msckf_tpu_torch`` loads neither jax nor flax, and no file of the
+* ``import msckf_tpu_torch`` loads neither jax nor flax (nor, with the
+  trainer's modules, optax), and no file of the
   port or chip_smoke.py imports jax, flax or the JAX package; the runner
   and its modules load none of jax, the JAX package, pandas or OpenCV, and
   ``python -m msckf_tpu_torch.runner --help`` runs without them; the
@@ -9,7 +10,8 @@
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
   raise without a GPU instead of carrying on on the CPU: the filter's, the
   batched path's, the image front-end's and image-in pipeline's, the
-  streamed runs', the checkpoint loader's and the runner's;
+  streamed runs', the checkpoint loader's, the runner's and the XFeat
+  trainer's;
 * the compensated correction island, the last configuration ported, runs
   one frame of a float32 filter as the JAX package's does; any
   ``prune_path`` but "masked" is the "cond" prune, as in the JAX package;
@@ -47,7 +49,7 @@ from tests.test_torch_modules import jax_state_from_numpy, jax_state_to_numpy
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "msckf_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msckf_tpu")
 
 
 def test_import_leaves_jax_and_flax_out():
@@ -56,8 +58,10 @@ def test_import_leaves_jax_and_flax_out():
         "msckf_tpu_torch.ops.kernels, msckf_tpu_torch.data.stream, "
         "msckf_tpu_torch.parallel.batched, msckf_tpu_torch.pipeline, "
         "msckf_tpu_torch.models.xfeat, msckf_tpu_torch.models.frontend, "
-        "msckf_tpu_torch.data.rendered; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'msckf_tpu')]; "
+        "msckf_tpu_torch.data.rendered, msckf_tpu_torch.models.selfsup, "
+        "msckf_tpu_torch.models.train_xfeat, msckf_tpu_torch.models.frontend_eval; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'msckf_tpu')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -265,6 +269,25 @@ def test_image_entry_points_raise_without_gpu(monkeypatch):
                                            top_k=32, device="cpu")
     assert final.P.device.type == "cpu" and out.p_WI.shape == (1, 2, 3)
     assert FeatureExtractor(model, device="cpu").extract_features(img.numpy())[0].ndim == 2
+
+
+def test_trainer_entry_points_raise_without_gpu(monkeypatch, tmp_path):
+    """The trainer takes the device rule too: train and its CLI raise
+    without a GPU unless asked for the CPU, before any pool is generated."""
+    from msckf_tpu_torch.models import train_xfeat
+
+    def no_pool(*args, **kwargs):
+        raise AssertionError("the pool was generated before the device was checked")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(train_xfeat, "PairPool", no_pool)
+    out = str(tmp_path / "w.npz")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_xfeat.train(steps=1, batch=1, size=32, pool_pairs=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_xfeat.main(["--steps", "1", "--size", "32", "--batch", "1", "--pool", "1",
+                          "--out", out])
+    assert not (tmp_path / "w.npz").exists()
 
 
 SMALL_FIELDS = ("dtype", "f_max", "u_max", "k_max", "m_max", "n_cam_slots",

@@ -277,3 +277,35 @@ def test_extract_features_drops_invalid_slots(model):
     np.testing.assert_array_equal(kp, kp_t[:n].numpy())
     np.testing.assert_array_equal(score, score_t[:n].numpy())
     assert (score > 0).all()
+
+
+def test_init_params_draws_flax_lecun_normal():
+    """Kernels from a unit normal truncated to [-2, 2], scaled to variance
+    1 / fan_in (Flax's lecun_normal), zero biases, statistics 0 and 1."""
+    model = txf.init_params(torch.Generator().manual_seed(0), device="cpu")
+    assert not model.training
+    for name, p in model.named_parameters():
+        if name.endswith("bias"):
+            assert torch.equal(p, torch.zeros_like(p)), name
+            continue
+        fan_in = p.shape[1] * p.shape[2] * p.shape[3]
+        assert (p.abs() * np.sqrt(fan_in)).max() <= 2.0 / 0.87962566 + 1e-6, name
+    big = model.block5_1.conv.weight.detach()  # 147,456 draws, fan_in 1,152
+    assert abs(float(big.var()) * 1152 - 1.0) <= 0.05
+    for name, b in model.named_buffers():
+        assert torch.equal(b, torch.zeros_like(b) if name.endswith("mean") else torch.ones_like(b))
+    again = txf.init_params(torch.Generator().manual_seed(0), device="cpu")
+    assert torch.equal(again.kp_conv.weight, model.kp_conv.weight)
+
+
+def test_detect_and_compute_refuses_training_mode(model):
+    """The batch-statistics branch belongs to the trainer: detect_and_compute
+    never runs it (it would also move the running statistics)."""
+    before = model.block1_0.bn_mean.clone()
+    model.train()
+    try:
+        with pytest.raises(ValueError, match="eval mode"):
+            txf.detect_and_compute(model, torch.as_tensor(_texture(0, 64, 64)))
+    finally:
+        model.eval()
+    assert torch.equal(model.block1_0.bn_mean, before)
