@@ -98,7 +98,7 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               image loop's frames/s (two runs, in turns with the synthetic
               default loop when main ran), and a 5-frame profile.
 11. runner  — the port's CLI, msckf_tpu_torch.runner.main, in-process:
-              800 ticks of the synthetic circle (the runner's dataset
+              600 ticks of the synthetic circle (the runner's dataset
               capacities), then
               with --stream_chunk 16 and 64: final error < 0.2 m, no
               overflow, launches equal to twice the loop's prediction (the
@@ -179,6 +179,32 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               and load_xfeat_npz on the card: detect_and_compute bitwise
               the in-memory model's; (e) train_xfeat.main(--steps 20
               --pool 8) in-process on the card, its weights loaded.
+15. scaleout — scale-out on the one card, at the runner's --batch capacities
+              (float32; 32 seeds of the circle, 300 ticks): (a)
+              sharded_run_sequence over a mesh that names the card twice,
+              16 + 16 rows: each shard's rows bitwise batched_run_sequence of
+              those rows alone, launches twice the per-shard prediction,
+              counters and per-tick counts equal to one launch of 32 and its
+              trajectories within 1e-3; shardmap_run_sequence, one unbatched
+              sequence a shard in its own host thread (12 frames), each
+              bitwise its own run_sequence; run_batched_streamed(sharding=) bitwise the
+              sharded run; (b) init_distributed at world size 1 over NCCL,
+              global_data_mesh, shard_global_batch and multihost_run_sequence
+              bitwise batched_run_sequence, gather_global a real all-gather;
+              (c) two processes on the card over gloo: multihost_demo with 16
+              rows each, bitwise a one-process run of those rows, and the
+              runner's --batch 32 under the torchrun environment contract,
+              rank 0's errors within 1e-3 m of the one-process runner's (a
+              third process); (d)
+              sharded XFeat with the committed weights on 8 rendered frames of
+              640 x 480: mesh (1, 1) over NCCL bitwise the unsharded call,
+              meshes (1, 2) and (2, 1) over two gloo ranks with every
+              keypoint slot and validity equal and scores and descriptors
+              within 5e-4; (e) save_state_dcp after 6 of 12 frames, load_state_dcp on
+              the card, resumed bitwise; (f) each form's wall time beside the
+              card's name and power limit. The child processes run beside
+              (a), (b) and (e), each under a deadline; their output is logged
+              when one fails.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -193,6 +219,7 @@ import copy
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -266,7 +293,7 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers", "images", "runner", "island", "sources", "train")
+          "solvers", "images", "runner", "island", "sources", "train", "scaleout")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 # ticks of the float64 card-vs-CPU parity runs (phases parity and solvers;
 # 600 until the island phase joined the script, cut to keep it in its time)
@@ -2189,11 +2216,12 @@ def phase_images(torch, pkg, K, default=None):
 # phase 11: the runner, chunked streaming and checkpoint/resume
 # ---------------------------------------------------------------------------
 
-# a third of the synthetic circle (the runner's default is the whole 2,400
+# a quarter of the synthetic circle (the runner's default is the whole 2,400
 # ticks): the whole script with 2,400 took 1,248.3 s, over its 1,200 s, on a
 # host whose default loop ran at 17.2 frames/s; with 1,200 it took 1,028.8 s
-# on one at 17.0 frames/s, before phase train joined it
-RUNNER_TICKS = 800
+# on one at 17.0 frames/s, before phase train joined it; 800 until phase
+# scaleout joined it
+RUNNER_TICKS = 600
 RUNNER_CHUNKS = (16, 64)
 # the batch and the rendered runs were cut from 600 and 800 ticks when the
 # island phase joined the script, to keep it in its time
@@ -3434,6 +3462,407 @@ def phase_train(torch):
             f"weights load on the card")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: scale-out (the meshes, the multi-process run, sharded XFeat, the
+# runner under torchrun, the DCP pair)
+# ---------------------------------------------------------------------------
+
+SCALEOUT_CAPS = dict(f_max=192, u_max=32, k_max=256, desc_dim=16)  # the runner's --batch
+SCALEOUT_TICKS = 300  # the runner's --batch run of phase runner
+SCALEOUT_SEED0 = 100  # the runner's first seed
+SCALEOUT_CHUNK = 8  # frames a chunk of the streamed form
+SCALEOUT_DEMO_ROWS = 16  # rows a rank of the two-process demo
+SCALEOUT_SHARDMAP_FRAMES = 12  # frames of the shard-map and DCP runs
+SCALEOUT_ALONE_FRAMES = 10  # frames of (f)'s timings with nothing beside them
+SCALEOUT_IMAGES = 8  # 640 x 480 frames of the rendered circle through sharded XFeat
+# float32, two shards of 16 against one launch of 32 (trajectories and the
+# runner's final errors): the batched library products (cuBLAS) may round by
+# batch shape, the kernels do not. Sound runs read 7.3e-12 and 9.4e-13 m; a
+# row filtered on another row's data is off by ~1e-4 m or more
+SCALEOUT_GAP = 1e-9
+XFEAT_SHARD_TOL = 5e-4  # the JAX package's own, tests/test_xfeat_sharded.py:28
+SCALEOUT_CHILD_S = 420  # the children's deadline, from the phase's start
+
+# one rank of the runner under the torchrun environment contract
+_RUNNER_RANK = """
+import json
+from msckf_tpu_torch import runner
+errs = runner.main(%r)
+print("ERRS " + json.dumps({"errs": list(errs), "seconds": errs.seconds}), flush=True)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(label, argvs, envs, tmp):
+    """One process a rank, all at once, each one's output to a file."""
+    import os
+
+    procs = []
+    for i, (argv, env) in enumerate(zip(argvs, envs)):
+        path = tmp / f"{label.replace(' ', '_')}.{i}.log"
+        with open(path, "w") as f:
+            procs.append((subprocess.Popen([sys.executable, *argv], cwd=REPO, stdout=f,
+                                           stderr=subprocess.STDOUT, text=True,
+                                           env={**os.environ, **env}), path))
+    return label, procs
+
+
+def wait_ranks(ranks, deadline):
+    """The ranks' outputs once all have exited; a rank that fails or
+    outlives ``deadline`` (perf_counter) fails the phase, every rank's
+    output logged."""
+    label, procs = ranks
+    late = False
+    for p, _ in procs:
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            late = True
+            break
+    if late:
+        for p, _ in procs:
+            p.kill()
+            p.wait()
+    outs = [path.read_text() for _, path in procs]
+    if late or any(p.returncode != 0 for p, _ in procs):
+        for i, out in enumerate(outs):
+            log(f"scaleout {label}: rank {i} output:\n{out[-3000:]}")
+    check(not late, f"scaleout {label}: a rank outlived its deadline")
+    for i, (p, _) in enumerate(procs):
+        check(p.returncode == 0, f"scaleout {label}: rank {i} exited {p.returncode}")
+    return outs
+
+
+def phase_scaleout(torch, pkg, K):
+    """Scale-out on the one card: (a) sharded_run_sequence over a two-shard
+    mesh of the card, shardmap_run_sequence and the streamed form; (b) the
+    multi-process functions at world size 1 over NCCL; (c) two processes on
+    the card over gloo: the demo and the runner under the torchrun
+    environment contract; (d) sharded XFeat, mesh (1, 1) over NCCL and
+    (1, 2) and (2, 1) over two gloo ranks; (e) the DCP pair mid-sequence;
+    (f) each form's wall time. The children start first and run beside
+    (a), (b) and (e)."""
+    import tempfile
+
+    from msckf_tpu_torch.data.rendered import generate_rendered_circle
+    from msckf_tpu_torch.data.stream import to_device
+    from msckf_tpu_torch.data.synthetic import generate_circle_sequence
+    from msckf_tpu_torch.filter.state import state_to_numpy
+    from msckf_tpu_torch.filter.streamed import run_batched_streamed
+    from msckf_tpu_torch.models.xfeat import batched_detect_and_compute, load_xfeat_npz
+    from msckf_tpu_torch.parallel import multihost as mh
+    from msckf_tpu_torch.parallel import multihost_demo as demo
+    from msckf_tpu_torch.parallel import xfeat_sharded as xs
+    from msckf_tpu_torch.parallel.batched import (
+        data_mesh, sharded_run_sequence, shardmap_run_sequence,
+    )
+    from msckf_tpu_torch.utils.checkpoint import load_state_dcp, save_state_dcp
+
+    start = time.perf_counter()
+    card = gpu_name_and_power()
+    cfg = pkg.reference_experiment_config(**SCALEOUT_CAPS)
+    dcfg = pkg.batched_dispatch(cfg)
+    host = pkg.circle_streams(cfg, range(SCALEOUT_SEED0, SCALEOUT_SEED0 + BATCH),
+                              max_ticks=SCALEOUT_TICKS)
+    std = to_device(host, cfg, DEVICE)
+    C, Bt = std.frames["imu_ts"].shape[1:3]
+    Bp = std.prefix["imu_ts"].shape[1]
+    half = BATCH // 2
+    card0 = "cuda:0" if DEVICE == "cuda" else DEVICE
+    seq_img = generate_rendered_circle(rng=np.random.default_rng(0), n_ticks=90, width=640,
+                                       height=480, fxy=320.0, camera_height=4.0)
+    images = seq_img.images[:SCALEOUT_IMAGES]
+    check(images.shape == (SCALEOUT_IMAGES, 480, 640), f"scaleout: images {images.shape}")
+    walls = {}
+
+    def rows(d, r):
+        return {k: v[r] for k, v in d.items()}
+
+    def states(n, r=slice(None)):
+        return pkg.batched_initial_state(cfg, n, std.R_init[r], device=DEVICE)
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return out, K.launch_counts()
+
+    def same_outputs(label, a, b):
+        for name, x, y in zip(a._fields, a, b):
+            x, y = (torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v.cpu()
+                    for v in (x, y))
+            check(same_bits(torch, x, y), f"{label}: output {name} differs")
+
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        np.save(tmp / "images.npy", images)
+        children = []
+        try:
+            # (c) and (d)'s processes first: they run beside (a), (b) and (e)
+            port = _free_port()
+            children.append(start_ranks("demo", [
+                ["-m", "msckf_tpu_torch.parallel.multihost_demo", "--coordinator",
+                 f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(i),
+                 "--rows", str(SCALEOUT_DEMO_ROWS), "--device", DEVICE, "--backend", "gloo"]
+                for i in range(2)], [{}] * 2, tmp))
+            runner_argv = ["--batch", str(BATCH), "--max_frames", str(SCALEOUT_TICKS),
+                           "--device", DEVICE, "--data_root", tmp_s]
+            port = _free_port()
+            children.append(start_ranks("runner", [["-c", _RUNNER_RANK % runner_argv]] * 2, [
+                {"RANK": str(i), "LOCAL_RANK": str(i), "WORLD_SIZE": "2", "LOCAL_WORLD_SIZE": "2",
+                 "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)} for i in range(2)], tmp))
+            children.append(start_ranks("runner one process",
+                                        [["-c", _RUNNER_RANK % runner_argv]], [{}], tmp))
+            port = _free_port()
+            children.append(start_ranks("xfeat", [
+                ["-m", "msckf_tpu_torch.parallel.xfeat_sharded", "--coordinator",
+                 f"127.0.0.1:{port}", "--num_processes", "2", "--process_id", str(i),
+                 "--images", str(tmp / "images.npy"), "--weights", str(WEIGHTS),
+                 "--meshes", "1x2,2x1", "--top_k", str(IMAGE_TOP_K), "--out", str(tmp / "xfeat"),
+                 "--device", DEVICE, "--backend", "gloo"] for i in range(2)], [{}] * 2, tmp))
+
+            # (a) two shards of the card, 16 + 16 rows
+            mesh2 = data_mesh(devices=[card0, card0])
+            sharded, launches = timed(f"sharded 2 x {half}", lambda: sharded_run_sequence(
+                cfg, mesh2, assume_camera=True)(states(BATCH), std.prefix, std.frames))
+            pred = predicted_batched_launches(K, dcfg, C, Bt, Bp)
+            for k in path_kernels(dcfg):
+                check(launches[k] > 0, f"scaleout (a): kernel {k} never launched")
+            for k, v in launches.items():
+                check(v == 2 * pred[k], f"scaleout (a): {k} launched {v} times, two shards of "
+                                        f"one per call site and frame predict 2 x {pred[k]}")
+            for i in range(2):
+                r = slice(i * half, (i + 1) * half)
+                ref, _ = timed(f"batched {half} rows", lambda: pkg.batched_run_sequence(
+                    cfg, states(half, r), rows(std.prefix, r), rows(std.frames, r),
+                    assume_camera=True, device=DEVICE))
+                label = f"scaleout (a) shard {i}"
+                same_state(label, torch.utils._pytree.tree_map(lambda x: x[r], sharded[0]), ref[0])
+                same_outputs(label, type(ref[1])(*(x[r] for x in sharded[1])), ref[1])
+                same_outputs(label, type(ref[2])(*(x[r] for x in sharded[2])), ref[2])
+            whole, _ = timed(f"batched {BATCH} rows", lambda: pkg.batched_run_sequence(
+                cfg, states(BATCH), std.prefix, std.frames, assume_camera=True, device=DEVICE))
+            diag_a, diag_b = (state_to_numpy(x[0]) for x in (sharded, whole))
+            for k in ("diag.n_gating_rejected", "diag.n_epipolar_rejected",
+                      "diag.n_homography_rejected", "diag.n_track_overflow",
+                      "diag.n_update_overflow"):
+                check(np.array_equal(diag_a[k], diag_b[k]), f"scaleout (a): {k} differs between "
+                                                            f"two shards and one launch of {BATCH}")
+            gaps = {}
+            for name in ("p_WI", "v_WI", "R_WI", "sigma_pos", "n_cams", "n_tracks"):
+                a, b = (getattr(x[2], name).double().cpu().numpy() for x in (sharded, whole))
+                gaps[name] = float(np.abs(a - b).max())
+            check(gaps["n_cams"] == 0 and gaps["n_tracks"] == 0,
+                  f"scaleout (a): per-tick counts differ {gaps}")
+            check(max(gaps[n] for n in ("p_WI", "v_WI", "R_WI")) <= SCALEOUT_GAP,
+                  f"scaleout (a): two shards against one launch of {BATCH}: gaps {gaps}")
+            p = sharded[0].imu.p_WI.double().cpu().numpy()
+            gt = generate_circle_sequence(
+                rng=np.random.default_rng(SCALEOUT_SEED0)).poses_t[host.n_ticks - 1]
+            err = np.linalg.norm(p - gt, axis=-1)
+            check(np.isfinite(err).all() and (err < 0.2).all(),
+                  f"scaleout (a): final errors {np.round(err, 4).tolist()} m")
+            log(f"scaleout (a): sharded_run_sequence over data_mesh([{card0}, {card0}]), "
+                f"{half} + {half} of {BATCH} seeds x {C} frames x {Bt} ticks (+{Bp}), float32, the "
+                f"runner's --batch capacities: each shard's rows bitwise batched_run_sequence of "
+                f"those rows alone; against one launch of {BATCH}: counters and per-tick counts "
+                f"equal, largest gaps p {gaps['p_WI']:.3g} m, v {gaps['v_WI']:.3g}, R "
+                f"{gaps['R_WI']:.3g}, sigma_pos {gaps['sigma_pos']:.3g} (limit {SCALEOUT_GAP}); "
+                f"final errors {err.min():.4f} to {err.max():.4f} m; launches "
+                f"{ {k: v for k, v in launches.items() if v} } (= 2 x one per call site and "
+                f"frame)")
+
+            two = slice(0, 2)
+            short = {k: v[:, :SCALEOUT_SHARDMAP_FRAMES] for k, v in std.frames.items()}
+            sm, sm_launches = timed("shardmap 2 x 1", lambda: shardmap_run_sequence(cfg, mesh2)(
+                states(2, two), rows(std.prefix, two), rows(short, two)))
+            for k in path_kernels(cfg):
+                check(sm_launches[k] > 0, f"scaleout (a) shardmap: kernel {k} never launched")
+            singles = []
+            for b in range(2):
+                single, _ = timed(f"single {b}", lambda: pkg.run_sequence(
+                    cfg, pkg.make_initial_state(cfg, std.R_init[b], device=DEVICE),
+                    rows(std.prefix, b), rows(short, b), device=DEVICE))
+                singles.append(single)
+                label = f"scaleout (a) shardmap sequence {b}"
+                same_state(label, torch.utils._pytree.tree_map(lambda x: x[b], sm[0]), single[0])
+                same_outputs(label, _seq(sm[1], b), single[1])
+                same_outputs(label, _seq(sm[2], b), single[2])
+            log(f"scaleout (a): shardmap_run_sequence over the same mesh, one sequence a shard in "
+                f"its own host thread, {SCALEOUT_SHARDMAP_FRAMES} frames, unbatched with every "
+                f"default kernel "
+                f"{ {k: v for k, v in sm_launches.items() if v} }: each bitwise its own "
+                f"run_sequence")
+
+            streamed, _ = timed("streamed sharded", lambda: run_batched_streamed(
+                cfg, states(BATCH), host.prefix, host.frames, chunk_frames=SCALEOUT_CHUNK,
+                assume_camera=True, sharding=mesh2))
+            same_state("scaleout (a) streamed", streamed[0], sharded[0])
+            same_outputs("scaleout (a) streamed", streamed[1], sharded[1])
+            same_outputs("scaleout (a) streamed", streamed[2], sharded[2])
+            log(f"scaleout (a): run_batched_streamed(sharding=the mesh), chunks of "
+                f"{SCALEOUT_CHUNK} frames: bitwise the sharded run")
+
+            # (b) world size 1 over NCCL, and (d)'s mesh (1, 1)
+            mh.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device=DEVICE)
+            try:
+                check(torch.distributed.get_backend() == ("nccl" if DEVICE == "cuda" else "gloo"),
+                      f"scaleout (b): backend {torch.distributed.get_backend()}")
+                gmesh = mh.global_data_mesh(device=DEVICE)
+                local = [mh.shard_global_batch(t, gmesh) for t in (states(BATCH), std.prefix,
+                                                                     std.frames)]
+                check(mh.local_batch_slice(BATCH) == (0, BATCH), "scaleout (b): local slice")
+                mhout, _ = timed("multihost world 1", lambda: mh.multihost_run_sequence(
+                    cfg, gmesh, assume_camera=True)(*local))
+                same_state("scaleout (b)", mhout[0], whole[0])
+                same_outputs("scaleout (b)", mhout[2], whole[2])
+                gathered = mh.gather_global(mhout[2], gmesh)
+                same_outputs("scaleout (b) gather_global", gathered, whole[2])
+                log(f"scaleout (b): init_distributed at world size 1 over "
+                    f"{torch.distributed.get_backend()}, global_data_mesh {gmesh}, "
+                    f"shard_global_batch, multihost_run_sequence of {BATCH} rows: bitwise "
+                    f"batched_run_sequence; gather_global (an all-gather of a group of one) "
+                    f"returns the same bits")
+
+                model = load_xfeat_npz(str(WEIGHTS), device=DEVICE)
+                imgs = torch.as_tensor(images, device=DEVICE)
+                ref_x, _ = timed("xfeat unsharded", lambda: batched_detect_and_compute(
+                    model, imgs, top_k=IMAGE_TOP_K))
+                xmesh = xs.xfeat_mesh(1, 1, device=DEVICE)
+                sp = xs.shard_params(model, xmesh)
+                got_x, _ = timed("xfeat mesh 1x1", lambda: xs.batched_detect_and_compute(
+                    sp, imgs, top_k=IMAGE_TOP_K, mesh=xmesh))
+                for name, a, b in zip(("kpts", "desc", "scores", "valid"), got_x, ref_x):
+                    check(same_bits(torch, a, b), f"scaleout (d) mesh (1, 1): {name} differs")
+                log(f"scaleout (d): mesh (1, 1) over {torch.distributed.get_backend()}, "
+                    f"{SCALEOUT_IMAGES} frames of 640 x 480, top-{IMAGE_TOP_K}: bitwise the "
+                    f"unsharded batched_detect_and_compute ({int(ref_x[3].sum())} valid keypoints)")
+            finally:
+                torch.distributed.destroy_process_group()
+
+            # (e) the DCP pair mid-sequence, on the card
+            hf = SCALEOUT_SHARDMAP_FRAMES // 2
+            state = pkg.make_initial_state(cfg, std.R_init[0], device=DEVICE)
+            state, _ = pkg.propagate_prefix(cfg, state, rows(std.prefix, 0))
+            state, _ = pkg.run_filter(cfg, state, {k: v[0, :hf] for k, v in short.items()})
+            path = str(tmp / "dcp")
+            save_state_dcp(path, state)
+            restored = load_state_dcp(path, cfg, device=DEVICE)
+            same_state("scaleout (e): the restored state", restored, state)
+            final, _ = pkg.run_filter(cfg, restored, {k: v[0, hf:] for k, v in short.items()})
+            same_state("scaleout (e): the resumed run", final, singles[0][0])
+            log(f"scaleout (e): save_state_dcp after frame {hf} of {SCALEOUT_SHARDMAP_FRAMES} (a "
+                f"directory of "
+                f"{sum(f.stat().st_size for f in Path(path).iterdir())} bytes), load_state_dcp "
+                f"on the card, continued: every leaf of the final state bitwise the "
+                f"uninterrupted run")
+
+            # (c) and (d): the children
+            deadline = start + SCALEOUT_CHILD_S
+            one = json.loads(wait_ranks(children[2], deadline)[0].split("ERRS ")[-1]
+                             .splitlines()[0])
+            outs = wait_ranks(children[0], deadline)
+            digests = []
+            for i, out in enumerate(outs):
+                m = [ln for ln in out.splitlines() if ln.startswith(f"MULTIHOST process {i}/2 ")]
+                check(len(m) == 1 and f"local_rows={SCALEOUT_DEMO_ROWS}" in m[0],
+                      f"scaleout (c) demo: rank {i} printed no MULTIHOST line")
+                digests.append(m[0].split("digest=")[-1])
+            cfg_d, std_d = demo.demo_inputs(40)
+            dstates, dpre, dfr = (torch.utils._pytree.tree_map(lambda x: x.to(DEVICE), t)
+                                  for t in demo.demo_batch(cfg_d, std_d, SCALEOUT_DEMO_ROWS))
+            dfinal, _, _ = pkg.batched_run_sequence(cfg_d, dstates, dpre, dfr, device=DEVICE)
+            want = demo.digest(dfinal.imu.p_WI.cpu().numpy())
+            check(digests == [want, want], f"scaleout (c) demo: digests {digests}, one process "
+                                           f"{want}")
+            log(f"scaleout (c): multihost_demo, two processes on the card over gloo, "
+                f"{SCALEOUT_DEMO_ROWS} rows each: both ranks' rows bitwise the one-process batched "
+                f"run of the same {SCALEOUT_DEMO_ROWS} rows (digest {want})")
+
+            outs = wait_ranks(children[1], deadline)
+            check(f"batched VIO: {BATCH} sequences on 2 device(s)" in outs[0],
+                  "scaleout (c) runner: rank 0 printed no report on 2 devices")
+            ranks = [json.loads(out.split("ERRS ")[-1].splitlines()[0]) for out in outs]
+            gap = float(np.abs(np.array(ranks[0]["errs"]) - np.array(one["errs"])).max())
+            check(ranks[0]["errs"] == ranks[1]["errs"], "scaleout (c) runner: the ranks' "
+                                                        "gathered errors differ")
+            check(gap <= SCALEOUT_GAP, f"scaleout (c) runner: rank 0's errors {gap:.3g} m from "
+                                       f"the one-process run's")
+            log(f"scaleout (c): runner --batch {BATCH} --max_frames {SCALEOUT_TICKS} under the "
+                f"torchrun environment contract, two ranks on the card over gloo: rank 0's "
+                f"gathered errors within {gap:.3g} m of the one-process runner's (limit "
+                f"{SCALEOUT_GAP}); timed runs {ranks[0]['seconds']:.3f} s (the slower rank) "
+                f"against {one['seconds']:.3f} s in one process")
+
+            outs = wait_ranks(children[3], deadline)
+            for mesh in ("1x2", "2x1"):
+                with np.load(tmp / "xfeat" / f"mesh_{mesh}.npz") as d:
+                    got = [d[k] for k in ("kpts", "desc", "scores", "valid")]
+                want_x = [x.cpu().numpy() for x in ref_x]
+                label = f"scaleout (d) mesh {mesh}"
+                check(np.array_equal(got[0], want_x[0]) and np.array_equal(got[3], want_x[3]),
+                      f"{label}: keypoint slots or validity differ from the unsharded call")
+                errs = {n: float(np.abs(g - w).max())
+                        for n, g, w in zip(("desc", "scores"), got[1:3], want_x[1:3])}
+                check(max(errs.values()) <= XFEAT_SHARD_TOL, f"{label}: {errs}")
+                log(f"{label}, two gloo ranks on the card: every keypoint slot and validity "
+                    f"equal, descriptors within {errs['desc']:.3g}, scores within "
+                    f"{errs['scores']:.3g} of the unsharded call (limit {XFEAT_SHARD_TOL})")
+        finally:
+            for _, procs in children:
+                for p, _ in procs:
+                    if p.poll() is None:
+                        p.kill()
+                    p.wait()
+
+    log("scaleout (f): wall times on " + card + " (host clock around work that ends in "
+        "torch.cuda.synchronize(); the two shards and the two ranks share one card and its host, "
+        "so these are no scaling figures): " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in walls.items()))
+
+    # (f) the same rows again with nothing beside them, over the first
+    # SCALEOUT_ALONE_FRAMES frames: one launch; the two shards interleaved
+    # from one host thread (sharded_run_sequence); and the two shards each
+    # from a host thread of its own, the layout the port does not take
+    # (threads share the interpreter lock)
+    first = {k: v[:, :SCALEOUT_ALONE_FRAMES] for k, v in std.frames.items()}
+
+    def threaded():
+        outs = [None, None]
+        threads = [threading.Thread(target=lambda i=i, r=r: outs.__setitem__(
+            i, pkg.batched_run_sequence(cfg, states(half, r), rows(std.prefix, r), rows(first, r),
+                                        assume_camera=True, device=DEVICE)))
+            for i, r in enumerate((slice(0, half), slice(half, BATCH)))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        check(all(o is not None for o in outs), "scaleout (f): a shard's thread failed")
+
+    walls.clear()
+    timed(f"one launch of {BATCH}", lambda: pkg.batched_run_sequence(
+        cfg, states(BATCH), std.prefix, first, assume_camera=True, device=DEVICE))
+    timed(f"2 x {half} interleaved, one thread", lambda: sharded_run_sequence(
+        cfg, mesh2, assume_camera=True)(states(BATCH), std.prefix, first))
+    timed(f"2 x {half}, a thread a shard", threaded)
+    log("scaleout (f): alone on " + card + ", " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()) + f" ({SCALEOUT_ALONE_FRAMES} frames; the "
+        f"host issues every launch, so a process drives its cards no faster than one card)")
+    log(f"scaleout: the children (the demo, the runner's two ranks and its one-process run, "
+        f"sharded XFeat) ran beside "
+        f"(a), (b) and (e); the phase took {time.perf_counter() - start:.1f} s")
+
+
 def profile_window(torch, run, n_frames: int, label: str, unit: str = "frame"):
     """Device busy share and the largest device-time items over one run of
     ``n_frames`` camera frames, or other ``unit``s (torch.profiler, device
@@ -3596,6 +4025,9 @@ def main(argv=None) -> int:
     if "train" in phases:
         phase("train")
         phase_train(torch)
+    if "scaleout" in phases:
+        phase("scaleout")
+        phase_scaleout(torch, pkg, K)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

@@ -41,7 +41,9 @@ from msckf_tpu_torch.filter.msckf import FrameStats, TickOutput, frame_step, pro
 from msckf_tpu_torch.filter.state import FilterState
 from msckf_tpu_torch.ops.device import check_on_device, resolve_device
 from msckf_tpu_torch.ops.precision import with_f32_matmuls
-from msckf_tpu_torch.parallel.batched import batched_dispatch, vmapped_frame_step
+from msckf_tpu_torch.parallel.batched import (
+    DataMesh, _batch_size, _gather, batched_dispatch, data_mesh, shard_batch, vmapped_frame_step,
+)
 
 
 class _Pipe:
@@ -108,70 +110,87 @@ def _host_slice(d: dict, cfg: MSCKFConfig, axis: int, a: int, b: int) -> dict:
     return out
 
 
-def _stream(cfg: MSCKFConfig, dev: torch.device, prefix: dict, frames: dict, axis: int,
-            chunk_frames: int, run_prefix, step, stats: FrameStats | None,
-            on_chunk=None, on_prefix=None):
-    """The double-buffered loop shared by the single and the batched form;
-    ``axis`` is the frame axis of ``frames`` and of the outputs, ``step``
-    one frame's ``(state, frame) -> (state, TickOutput)``.
+def _stream(cfg: MSCKFConfig, shards, axis: int, chunk_frames: int, step,
+            stats: FrameStats | None, on_chunk=None, on_prefix=None):
+    """The double-buffered loop shared by the single, the batched and the
+    sharded form. ``shards`` holds one (device, host prefix, host frames,
+    run_prefix) a shard, ``axis`` is the frame axis of the frames and of
+    the outputs, ``step`` one frame's ``(state, frame) -> (state,
+    TickOutput)``. Each shard has its own pipe on its device; frame by frame
+    the shards step in turn, and a chunk's host outputs are the shards'
+    concatenated along the leading (batch) axis. ``stats``, ``on_chunk``
+    and ``on_prefix`` serve the single form (one shard).
 
     The loop runs frame by frame here rather than through ``run_filter``: a
     call over a chunk would hold the chunk's first state for the whole
     chunk, one filter state (its track store) beyond what the monolithic
-    loop holds."""
-    C = int(np.asarray(frames["imu_ts"]).shape[axis])
+    loop holds. Returns (final states, one a shard; prefix TickOutput;
+    frame TickOutput), the TickOutputs as host numpy."""
+    C = int(np.asarray(shards[0][2]["imu_ts"]).shape[axis])
     if C == 0:
         raise ValueError("frames is empty")
     if chunk_frames < 1:
         raise ValueError(f"chunk_frames must be positive, got {chunk_frames}")
     bounds = [(a, min(a + chunk_frames, C)) for a in range(0, C, chunk_frames)]
     lead = (slice(None),) * axis
-    pipe = _Pipe(dev)
+    pipes = [_Pipe(dev) for dev, *_ in shards]
 
-    pre = pipe.upload(_host_slice(prefix, cfg, axis, 0, None))
-    pipe.ready(pre)
-    nxt = pipe.upload(_host_slice(frames, cfg, axis, *bounds[0]))
-    state, pre_out = run_prefix(pre)
-    pre_fetch = pipe.fetch(pre_out)
-    del pre, pre_out
+    def cat(parts):
+        return parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+
+    states, pre_fetches, nxts = [], [], []
+    for pipe, (_, prefix, frames, run_prefix) in zip(pipes, shards):
+        pre = pipe.upload(_host_slice(prefix, cfg, axis, 0, None))
+        pipe.ready(pre)
+        nxts.append(pipe.upload(_host_slice(frames, cfg, axis, *bounds[0])))
+        state, pre_out = run_prefix(pre)
+        states.append(state)
+        pre_fetches.append(pipe.fetch(pre_out))
+        del pre, pre_out
+
+    def host(fetches):
+        return TickOutput(*(cat([h.numpy() for h in hs]) for hs in zip(*(f[0] for f in fetches))))
 
     chunks_out = []
 
     def deliver(pending):
-        (host, event), start = pending
-        if event is not None:
-            event.synchronize()
+        fetches, start = pending
+        for _, event in fetches:
+            if event is not None:
+                event.synchronize()
         if stats is not None:
             stats.host_syncs += 1
         if start == 0 and on_prefix is not None:
             # the prefix's fetch went first on the same stream
-            on_prefix(TickOutput(*(h.numpy() for h in pre_fetch[0])))
-        out = TickOutput(*(h.numpy() for h in host))
+            on_prefix(host(pre_fetches))
+        out = host(fetches)
         chunks_out.append(out)
         if on_chunk is not None:
             on_chunk(start, out)
 
     pending = None
     for i, (a, b) in enumerate(bounds):
-        chunk = nxt
-        pipe.ready(chunk)
-        if i + 1 < len(bounds):
-            nxt = pipe.upload(_host_slice(frames, cfg, axis, *bounds[i + 1]))
-        outs = []
+        chunks = nxts
+        nxts = []
+        for pipe, chunk, (_, _, frames, _) in zip(pipes, chunks, shards):
+            pipe.ready(chunk)
+            if i + 1 < len(bounds):
+                nxts.append(pipe.upload(_host_slice(frames, cfg, axis, *bounds[i + 1])))
+        outs = [[] for _ in shards]
         for j in range(b - a):
-            state, out = step(state, {k: v[lead + (j,)] for k, v in chunk.items()})
-            outs.append(out)
-        out = TickOutput(*(torch.stack(list(x), dim=axis) for x in zip(*outs)))
-        fetched = (pipe.fetch(out), a)
-        del chunk, outs, out
+            for k, chunk in enumerate(chunks):
+                states[k], out = step(states[k], {n: v[lead + (j,)] for n, v in chunk.items()})
+                outs[k].append(out)
+        fetched = ([pipe.fetch(TickOutput(*(torch.stack(list(x), dim=axis) for x in zip(*o))))
+                    for pipe, o in zip(pipes, outs)], a)
+        del chunks, outs
         if pending is not None:
             deliver(pending)
         pending = fetched
     deliver(pending)
 
-    pre_host = TickOutput(*(h.numpy() for h in pre_fetch[0]))
     frame_out = TickOutput(*(np.concatenate(x, axis=axis) for x in zip(*chunks_out)))
-    return state, pre_host, frame_out
+    return states, host(pre_fetches), frame_out
 
 
 @with_f32_matmuls
@@ -192,32 +211,46 @@ def run_sequence_streamed(cfg: MSCKFConfig, state: FilterState, prefix: dict, fr
     (C, B, ...)), the TickOutputs as host numpy."""
     dev = resolve_device(device)
     check_on_device(state.P, dev, "the filter state")
-    return _stream(
-        cfg, dev, prefix, frames, 0, chunk_frames,
-        lambda pre: propagate_prefix(cfg, state, pre),
-        lambda st, fr: frame_step(cfg, st, fr, assume_camera, stats),
+    (state,), pre_out, frame_out = _stream(
+        cfg, [(dev, prefix, frames, lambda pre: propagate_prefix(cfg, state, pre))], 0,
+        chunk_frames, lambda st, fr: frame_step(cfg, st, fr, assume_camera, stats),
         stats, on_chunk, on_prefix,
     )
+    return state, pre_out, frame_out
 
 
 @with_f32_matmuls
 def run_batched_streamed(cfg: MSCKFConfig, states: FilterState, prefix: dict, frames: dict,
-                         chunk_frames: int = 64, device=None, assume_camera: bool = False):
+                         chunk_frames: int = 64, device=None, assume_camera: bool = False,
+                         sharding: DataMesh | None = None):
     """The batched form of ``run_sequence_streamed``: ``batched_run_sequence``
     (with ``batched_dispatch``) over host arrays with leading dims (batch,
-    Bp) and (batch, C, ...), streamed in chunks along the frame axis.
-    ``states`` (leading batch axis) must already live on ``device`` (the GPU
-    unless ``device="cpu"``).
+    Bp) and (batch, C, ...), streamed in chunks along the frame axis, on
+    ``sharding``, a ``DataMesh`` (``parallel/batched.py::data_mesh``), by
+    default ``data_mesh(devices=[device])`` (the GPU unless
+    ``device="cpu"``). ``states`` (leading batch axis) must already live on
+    the mesh's first device.
 
-    Returns (final states on the device, prefix TickOutput (batch, Bp, ...),
-    frame TickOutput (batch, C, B, ...)), the TickOutputs as host numpy."""
-    dev = resolve_device(device)
-    check_on_device(states.P, dev, "the filter states")
+    The states and each host chunk split over the mesh as in
+    ``sharded_run_sequence``, each device double-buffers its own uploads,
+    and the frames run as there, bitwise.
+
+    Returns (final states on the mesh's first device, prefix TickOutput
+    (batch, Bp, ...), frame TickOutput (batch, C, B, ...)), the TickOutputs
+    as host numpy."""
+    mesh = sharding if sharding is not None else data_mesh(devices=[device])
+    check_on_device(states.P, mesh.devices[0], "the filter states")
     bcfg = batched_dispatch(cfg)
     vstep = vmapped_frame_step(bcfg, assume_camera)
-    return _stream(
-        cfg, dev, prefix, frames, 1, chunk_frames,
-        lambda pre: torch.func.vmap(lambda s, p: propagate_prefix(bcfg, s, p))(states, pre),
-        lambda st, fr: vstep(st, fr)[:2],
-        None,
-    )
+    prefix_step = torch.func.vmap(lambda s, p: propagate_prefix(bcfg, s, p))
+    parts = shard_batch(states, mesh)
+    per = _batch_size(parts[0])
+    shards = []
+    for i, (dev, st) in enumerate(zip(mesh.devices, parts)):
+        rows = slice(i * per, (i + 1) * per)
+        shards.append((dev, {k: np.asarray(v)[rows] for k, v in prefix.items()},
+                       {k: np.asarray(v)[rows] for k, v in frames.items()},
+                       lambda pre, st=st: prefix_step(st, pre)))
+    finals, pre_out, frame_out = _stream(cfg, shards, 1, chunk_frames,
+                                         lambda st, fr: vstep(st, fr)[:2], None)
+    return _gather(finals, mesh.devices[0]), pre_out, frame_out

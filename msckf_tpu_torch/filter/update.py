@@ -49,6 +49,7 @@ from msckf_tpu_torch.filter.tracks import (
 )
 from msckf_tpu_torch.ops import compensated as dw
 from msckf_tpu_torch.ops import kernels
+from msckf_tpu_torch.ops.device import one_cpu_thread
 from msckf_tpu_torch.ops.geometry import idp_angles_m, skew, so3_exp
 from msckf_tpu_torch.ops.smallmat import (
     default_rcond, matmul_small, matvec_small, polar_orthonormalize,
@@ -318,8 +319,9 @@ def _cholesky_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     system that is not positive definite gets gamma = NaN, which fails the
     gate, as the JAX Cholesky's NaN factor does; ``cholesky_ex`` runs
     without its error check, which would wait for the device."""
-    L, info = torch.linalg.cholesky_ex(0.5 * (S + S.transpose(-1, -2)))
-    sol = torch.cholesky_solve(r[..., None], L)[..., 0]
+    with one_cpu_thread(S):
+        L, info = torch.linalg.cholesky_ex(0.5 * (S + S.transpose(-1, -2)))
+        sol = torch.cholesky_solve(r[..., None], L)[..., 0]
     gamma = torch.sum(r * sol, dim=-1)
     return torch.where(info == 0, gamma, torch.full_like(gamma, float("nan")))
 
@@ -350,7 +352,8 @@ def _correction_terms(cfg: MSCKFConfig, P, A, c):
         Y = gain_solve(Bt, P, iters=cfg.solver_ns_iters)
     else:
         # solve_ex without its error check: the check would wait for the device
-        Y = torch.linalg.solve_ex(Bt, P, check_errors=False).result
+        with one_cpu_thread(Bt):
+            Y = torch.linalg.solve_ex(Bt, P, check_errors=False).result
     L = Y.T
     delta = (L @ c_).to(dt_)
 

@@ -52,6 +52,7 @@ from typing import NamedTuple
 
 import torch
 
+from msckf_tpu_torch.ops.device import one_cpu_thread
 from msckf_tpu_torch.ops.precision import with_f32_matmuls
 
 _SPLIT = 4097.0  # 2^12 + 1: Dekker split constant for the 24-bit f32 mantissa
@@ -397,10 +398,13 @@ def refined_solve(B: DF, C, iters: int = 3, solver: str = "lu") -> DF:
     """
     r, cs = _pow2_equilibration(B.hi)
     Bs = (B.hi * r[..., :, None]) * cs[..., None, :]
-    LU, piv, _ = torch.linalg.lu_factor_ex(Bs)
+    with one_cpu_thread(Bs):
+        LU, piv, _ = torch.linalg.lu_factor_ex(Bs)
 
     def scaled_solve(rhs):
-        return cs[..., :, None] * torch.linalg.lu_solve(LU, piv, r[..., :, None] * rhs)
+        with one_cpu_thread(LU):
+            X = torch.linalg.lu_solve(LU, piv, r[..., :, None] * rhs)
+        return cs[..., :, None] * X
 
     X = scaled_solve(C)
     lo = torch.zeros_like(X)

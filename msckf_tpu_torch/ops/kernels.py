@@ -31,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -59,6 +60,15 @@ LAUNCHES = {
     "triage_refresh_fused": 0,
     "update_terms_fused": 0,
 }
+
+
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    # host threads may launch at once (parallel/batched.py::shardmap_run_sequence)
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:
@@ -163,31 +173,43 @@ _SIGNATURES = {
 }
 
 
-@functools.lru_cache(maxsize=1)
+_LIBRARY: list[ctypes.CDLL] = []
+_LIBRARY_LOCK = threading.Lock()
+
+
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernels()))
-    for name, args in _SIGNATURES.items():
-        for suffix in ("_f32", "_f64"):
-            fn = getattr(lib, name + suffix)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
-    return lib
+    """The kernel library, built and loaded by the first caller; threads
+    that launch at once (``shardmap_run_sequence``) wait for that one."""
+    with _LIBRARY_LOCK:
+        if not _LIBRARY:
+            lib = ctypes.CDLL(str(build_kernels()))
+            for name, args in _SIGNATURES.items():
+                for suffix in ("_f32", "_f64"):
+                    fn = getattr(lib, name + suffix)
+                    fn.argtypes = list(args)
+                    fn.restype = ctypes.c_int
+            _LIBRARY.append(lib)
+        return _LIBRARY[0]
 
 
-def _launch(name: str, dtype: torch.dtype, *args) -> None:
+def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
+    """Launch on ``device``, the tensors' device, on its current stream:
+    the CUDA calls act on the current device, which a shard on another card
+    is not."""
     suffix = "_f32" if dtype == torch.float32 else "_f64"
     fn = getattr(_library(), name + suffix)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}{suffix} launch failed: cudaError {err}")
 
 
-def _query(name: str, dtype: torch.dtype, *args) -> int:
-    """A query of the kernel library about the current device (no launch);
-    raises on a negative (failed) answer."""
+def _query(name: str, dtype: torch.dtype, device: torch.device, *args) -> int:
+    """A query of the kernel library about ``device`` (no launch); raises
+    on a negative (failed) answer."""
     suffix = "_f32" if dtype == torch.float32 else "_f64"
-    out = getattr(_library(), name + suffix)(*args)
+    with torch.cuda.device(device):
+        out = getattr(_library(), name + suffix)(*args)
     if out < 0:
         raise RuntimeError(f"{name}{suffix} failed: cudaError {-out}")
     return out
@@ -310,7 +332,7 @@ def gate_scratch_elems(dtype: torch.dtype, n: int, device: torch.device) -> int:
     """Elements of the gate's global scratch per system of n rows on the
     device: 0 where a system's working set fits in shared memory (the
     kernel library's own answer, asked once per device, dtype and n)."""
-    return _query("msckf_gate_scratch", dtype, n)
+    return _query("msckf_gate_scratch", dtype, device, n)
 
 
 def gate_scratch(nsys: int, n: int, dtype: torch.dtype, device) -> torch.Tensor | None:
@@ -335,9 +357,9 @@ def _gating(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return torch.zeros(U, dtype=dt, device=S.device)
     gamma = torch.empty(U, dtype=dt, device=S.device)
     scratch = gate_scratch(U, n, dt, S.device)
-    _launch("msckf_gating", dt, S.data_ptr(), r.data_ptr(), gamma.data_ptr(), _ptr(scratch),
+    _launch("msckf_gating", dt, S.device, S.data_ptr(), r.data_ptr(), gamma.data_ptr(), _ptr(scratch),
             U, n)
-    LAUNCHES["batched_gating_gamma"] += 1
+    _count("batched_gating_gamma")
     return gamma
 
 
@@ -498,10 +520,10 @@ def _verification_launch(R1, t1, kp1, kp2, camR, camt, K, Kinv):
     consts = (camR, camt, K, Kinv)
     strides = (x.stride(0) if x.dim() > len(shape) else 0
                for (_, shape), x in zip(_VERIFY_CONSTS, consts))
-    _launch("msckf_verification", dt, *(t.data_ptr() for t in (R1, t1, kp1, kp2, *consts)),
+    _launch("msckf_verification", dt, dev, *(t.data_ptr() for t in (R1, t1, kp1, kp2, *consts)),
             *strides, *(t.data_ptr() for t in (homo, epi, base)), F, M, B,
             verification_plan(F, M)[0])
-    LAUNCHES["verification_scores"] += 1
+    _count("verification_scores")
     return homo, epi, base
 
 
@@ -599,9 +621,9 @@ def _p15_launch(P0, Phi, Qd):
     acc = torch.empty_like(P)
     sig = torch.empty((B, nt, 6), dtype=dt, device=dev)
     C, _, smem = p15_plan(nt, P0.element_size())
-    _launch("msckf_p15_recurrence", dt, P0.data_ptr(), Phi.data_ptr(), Qd.data_ptr(),
+    _launch("msckf_p15_recurrence", dt, dev, P0.data_ptr(), Phi.data_ptr(), Qd.data_ptr(),
             P.data_ptr(), acc.data_ptr(), sig.data_ptr(), nt, B, C, smem)
-    LAUNCHES["p15_recurrence_fused"] += 1
+    _count("p15_recurrence_fused")
     return P, acc, sig
 
 
@@ -779,9 +801,9 @@ def _propagate_launch(R0, p0, v0, bg, ba, last_ts, prop_count, ts, gyro, acc, va
             empty(15, 15), empty(15, 15), empty(nt, 3, 3), empty(nt, 3), empty(nt, 3),
             empty(nt, 6))
     strides = (x.stride(0) if x.dim() == 2 else 0 for x in (qc, gravity))
-    _launch("msckf_propagate_block", dt, *(t.data_ptr() for t in args + outs), *strides, nt,
+    _launch("msckf_propagate_block", dt, dev, *(t.data_ptr() for t in args + outs), *strides, nt,
             B)
-    LAUNCHES["propagate_block_fused"] += 1
+    _count("propagate_block_fused")
     return outs
 
 
@@ -957,11 +979,11 @@ def _triage_launch(line_base, line_dir, weights, anchor_R, anchor_t, K, Kinv, rc
     ok = torch.empty((B, F), dtype=torch.bool, device=dev)
     if B * F * M == 0:
         return m, rho, ok
-    _launch("msckf_triage", dt, *(t.data_ptr() for t in tensors),
+    _launch("msckf_triage", dt, dev, *(t.data_ptr() for t in tensors),
             3.0 * rcond, float(width), float(height),
             m.data_ptr(), rho.data_ptr(), ok.data_ptr(), F, M, B,
             *triage_plan(F, M, B, weights.element_size()))
-    LAUNCHES["triage_refresh_fused"] += 1
+    _count("triage_refresh_fused")
     return m, rho, ok
 
 
@@ -1118,12 +1140,12 @@ def _update_terms_launch(H, Hf, r, P, crit, sel_ok, sigma2, rcond):
     A = torch.empty((B, D, D), dtype=dt, device=dev)
     c = torch.empty((B, D), dtype=dt, device=dev)
     passed = torch.empty((B, U), dtype=torch.bool, device=dev)
-    _launch("msckf_update_terms", dt,
+    _launch("msckf_update_terms", dt, dev,
             *(t.data_ptr() for t in (H, Hf, r, P, crit, sel_ok)),
             *(_ptr(sc[k]) for k in ("Ht", "rt", "Ss", "gate", "Apart", "cpart")),
             *(t.data_ptr() for t in (A, c, passed)),
             U, R2, D, B, tpc, float(sigma2), 3.0 * float(rcond))
-    LAUNCHES["update_terms_fused"] += 1
+    _count("update_terms_fused")
     return A, c, passed
 
 

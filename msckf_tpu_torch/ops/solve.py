@@ -32,6 +32,8 @@ from __future__ import annotations
 
 import torch
 
+from msckf_tpu_torch.ops.device import one_cpu_thread
+
 
 def ns_inverse(S: torch.Tensor, iters: int, high_iters: int = 2) -> torch.Tensor:
     """Approximate inverse of (..., n, n) S by ``iters`` Newton-Schulz steps,
@@ -64,7 +66,8 @@ def _ns_solve(Bt: torch.Tensor, P: torch.Tensor, iters: int) -> torch.Tensor:
 
 def _lu_solve(Bt: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     # solve_ex without its error check: the check would wait for the device
-    return torch.linalg.solve_ex(Bt, P, check_errors=False).result
+    with one_cpu_thread(Bt):
+        return torch.linalg.solve_ex(Bt, P, check_errors=False).result
 
 
 def _relative_residual(Bt, P, Y, dims=(-2, -1)) -> torch.Tensor:
@@ -130,7 +133,8 @@ def chol_gain_solve(P: torch.Tensor, A: torch.Tensor, sigma2: float,
     PA = P @ A
     Bt = sigma2 * eye + PA  # B^T (P, A symmetric)
     M = sigma2 * P + PA @ P
-    Lc, info = torch.linalg.cholesky_ex(0.5 * (M + M.transpose(-1, -2)))
-    L = P @ torch.cholesky_solve(P, Lc)  # P M^{-1} P
+    with one_cpu_thread(M):
+        Lc, info = torch.linalg.cholesky_ex(0.5 * (M + M.transpose(-1, -2)))
+        L = P @ torch.cholesky_solve(P, Lc)  # P M^{-1} P
     L = torch.where((info == 0)[..., None, None], L, torch.full_like(L, float("nan")))
     return _residual_gate(Bt, P, L.transpose(-1, -2), rel_tol).transpose(-1, -2)

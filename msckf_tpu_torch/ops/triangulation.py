@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from msckf_tpu_torch.ops.device import one_cpu_thread
 from msckf_tpu_torch.ops.geometry import idp_angles_m
 from msckf_tpu_torch.ops.smallmat import default_rcond, matvec_small, tikhonov_inv_sym3
 
@@ -99,7 +100,8 @@ def refine_inverse_depth_gn(
         H = Jf.transpose(-1, -2) @ Jf + eye
         g = (Jf.transpose(-1, -2) @ rf[..., None])[..., 0]
         # solve_ex without its error check: the check would wait for the device
-        dp = torch.linalg.solve_ex(H, -g[..., None], check_errors=False).result[..., 0]
+        with one_cpu_thread(H):
+            dp = torch.linalg.solve_ex(H, -g[..., None], check_errors=False).result[..., 0]
         params = params + dp
 
     th, ph, rho = params[..., 0], params[..., 1], params[..., 2]

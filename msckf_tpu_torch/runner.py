@@ -23,9 +23,14 @@ Paths: the whole stream uploaded and run by ``run_sequence`` (default),
 streamed from the host in chunks (``--stream_chunk N``,
 ``filter/streamed.py``; ``--rerun_live`` logs each fetched chunk to the
 Rerun viewer), the image-in pipeline for an image source (``--frontend
-fused``), and a batch of noise realizations of the circle (``--batch N``).
+fused``), and a batch of noise realizations of the circle (``--batch N``),
+on one card, or over several with one rank a card under ``torchrun``:
+
+    torchrun --nproc_per_node 4 -m msckf_tpu_torch.runner --batch 32
+
 Each is timed as a warm-up run, then a timed run that ends in
-``torch.cuda.synchronize()``.
+``torch.cuda.synchronize()``; on the CPU, which has no kernels to build and
+no device caches to fill, the one run is the timed run.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from msckf_tpu_torch.models.xfeat import (
     XFeatModel, detect_and_compute, init_params, load_xfeat_checkpoint, load_xfeat_npz,
 )
 from msckf_tpu_torch.ops.device import resolve_device
+from msckf_tpu_torch.parallel import multihost as mh
 from msckf_tpu_torch.parallel.batched import batched_initial_state, batched_run_sequence
 from msckf_tpu_torch.pipeline import run_sequence_images
 from msckf_tpu_torch.utils.consistency import consistency_report
@@ -291,12 +297,16 @@ def _fence(dev):
 
 
 def _timed(run, dev, **timed_kwargs):
-    """A warm-up run, then a timed run given ``timed_kwargs``. Returns (the
-    timed run's result, warm-up seconds, timed seconds)."""
-    t0 = time.perf_counter()
-    run()
-    _fence(dev)
-    warm_s = time.perf_counter() - t0
+    """A warm-up run on the GPU (the kernels build and the device's caches
+    fill; the CPU has nothing to warm, and its warm-up seconds are 0), then
+    a timed run given ``timed_kwargs``. Returns (the timed run's result,
+    warm-up seconds, timed seconds)."""
+    warm_s = 0.0
+    if dev.type == "cuda":
+        t0 = time.perf_counter()
+        run()
+        _fence(dev)
+        warm_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = run(**timed_kwargs)
     _fence(dev)
@@ -387,7 +397,8 @@ def main(argv=None):
     ap.add_argument(
         "--batch", type=int, default=0,
         help="filter N independent noise realizations of the circle at once "
-        "(torch.func.vmap on one device) and report per-sequence errors",
+        "(torch.func.vmap on one device, or one rank a card under torchrun) and "
+        "report per-sequence errors",
     )
     args = ap.parse_args(argv)
     if args.log_images and args.frontend == "fused":
@@ -545,18 +556,43 @@ def main(argv=None):
 
 class BatchedErrors(list):
     """The final position error of each sequence of a ``--batch`` run (what
-    the JAX runner returns), carrying the run's ``cfg``, ``final`` states,
-    ``blocks`` as in ``main`` and timed ``seconds``."""
+    the JAX runner returns; every rank's under ``torchrun``), carrying the
+    run's ``cfg``, ``final`` states (this process's rows), ``blocks`` as in
+    ``main`` and timed ``seconds`` (the slowest rank's)."""
 
 
 def _run_batched(args, cfg, dev):
     """N noise realizations (seeds 100, 101, ...) of the synthetic circle
-    through the batched loop on one device: per-sequence final errors and
-    aggregate throughput."""
+    through the batched loop: in one process on ``dev``, or under
+    ``torchrun`` (``WORLD_SIZE`` > 1) one rank a card, each filtering its
+    own rows (``parallel/multihost.py``), rank 0 reporting. A process drives
+    one card: the loop is bound by the host's issue rate, so one process
+    splitting the batch over several cards would run no faster than one
+    card (PERF.md). Per-sequence final errors and aggregate throughput."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return _batched_rows(args, cfg, dev, None, "")
+    # NCCL refuses ranks that share a card: such ranks meet over gloo, and
+    # the report names the backend
+    per_host = int(os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+    shared = dev.type == "cuda" and per_host > torch.cuda.device_count()
+    mh.init_distributed(backend="gloo" if shared else None, device=dev)
+    try:
+        gmesh = mh.global_data_mesh(device=dev)
+        return _batched_rows(args, cfg, mh.rank_device(gmesh), gmesh,
+                             f", backend {torch.distributed.get_backend()}")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _batched_rows(args, cfg, dev, gmesh, backend):
+    """``_run_batched`` on ``dev``: all N rows in one process (``gmesh``
+    None), or this rank's rows, gathered over ``gmesh``."""
     # buffers sized for the synthetic circle (zero overflow)
     cfg = dataclasses.replace(cfg, f_max=192, u_max=32, k_max=256, desc_dim=16)
     B = args.batch
-    seqs = [generate_circle_sequence(rng=np.random.default_rng(100 + b)) for b in range(B)]
+    start, per = (0, B) if gmesh is None else mh.local_batch_slice(B)
+    seqs = [generate_circle_sequence(rng=np.random.default_rng(100 + b))
+            for b in range(start, start + per)]
     streams = [
         build_stream(cfg, s.timestamps, s.imu_gyro, s.imu_acc, s.cam_frame_ticks,
                      s.cam_keypoints, s.cam_descriptors, s.cam_scores,
@@ -574,7 +610,7 @@ def _run_batched(args, cfg, dev):
     if args.stream_chunk:
         # trajectories wide and sequences long: the batch streamed in chunks
         def run():
-            states = batched_initial_state(cfg, B, R_init=R_inits, device=dev)
+            states = batched_initial_state(cfg, per, R_init=R_inits, device=dev)
             return run_batched_streamed(cfg, states, prefix, frames,
                                         chunk_frames=args.stream_chunk, device=dev,
                                         assume_camera=True)
@@ -582,21 +618,27 @@ def _run_batched(args, cfg, dev):
         std = to_device(streams[0]._replace(prefix=prefix, frames=frames), cfg, device=dev)
 
         def run():
-            states = batched_initial_state(cfg, B, R_init=R_inits, device=dev)
+            states = batched_initial_state(cfg, per, R_init=R_inits, device=dev)
             return batched_run_sequence(cfg, states, std.prefix, std.frames,
                                         assume_camera=True, device=dev)
 
     (final, _, _), warm_s, run_s = _timed(run, dev)
     p_final = final.imu.p_WI.double().cpu().numpy()
-    errs = BatchedErrors(
-        float(np.linalg.norm(p_final[b] - seqs[b].poses_t[streams[b].n_ticks - 1]))
-        for b in range(B)
-    )
+    errs = np.array([np.linalg.norm(p_final[b] - seqs[b].poses_t[streams[b].n_ticks - 1])
+                     for b in range(per)])
+    if gmesh is not None:
+        # every rank's errors and the slowest rank's times, in rank order
+        errs = mh.gather_global(torch.as_tensor(errs, device=dev), gmesh).cpu().numpy()
+        warm_s, run_s = mh.gather_global(torch.tensor([[warm_s, run_s]], dtype=torch.float64,
+                                                      device=dev), gmesh).amax(0).tolist()
+    errs = BatchedErrors(errs.tolist())
     n_frames, block = frames["imu_ts"].shape[1:3]
-    print(f"batched VIO: {B} sequences on 1 device ({dev})")
-    print(f" - warm-up: {warm_s:.1f} s; run: {run_s:.4f} s")
-    print(f" - aggregate camera updates/s: {B * n_frames / run_s:.0f}")
-    print(f" - final position errors [m]: {np.round(errs, 4).tolist()}")
+    if gmesh is None or torch.distributed.get_rank() == 0:
+        n_dev, where = (1, str(dev)) if gmesh is None else (gmesh.size(), "one a rank")
+        print(f"batched VIO: {B} sequences on {n_dev} device(s) ({where}{backend})")
+        print(f" - warm-up: {warm_s:.1f} s; run: {run_s:.4f} s")
+        print(f" - aggregate camera updates/s: {B * n_frames / run_s:.0f}")
+        print(f" - final position errors [m]: {np.round(errs, 4).tolist()}")
     errs.cfg = cfg
     errs.final = final
     errs.blocks = (n_frames, block, prefix["imu_ts"].shape[1])

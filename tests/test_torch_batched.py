@@ -11,6 +11,15 @@ no triage kernel), and each sequence against the port's single
 camera and track counts are exact; trajectories are held to
 tests/test_parity.py's tolerances against JAX and to 1e-9 against the
 port's own single run (the same arithmetic on batched tensors).
+
+The JAX reference is the JAX package's ``sharded_run_sequence`` over one
+virtual CPU device a sequence (its batched run, partitioned), so the
+port's mesh functions share its compile: ``sharded_run_sequence`` over one
+CPU shard a sequence is held to it at the same tolerances, each shard's
+rows bitwise the batched loop's of those rows alone;
+``run_batched_streamed(sharding=)`` is bitwise the sharded run; and
+``shardmap_run_sequence`` (a host thread a shard) bitwise the port's
+``run_sequence`` of each row.
 """
 
 import dataclasses
@@ -32,8 +41,12 @@ from msckf_tpu.parallel import batched as jbatched
 
 import msckf_tpu_torch as mt
 from msckf_tpu_torch.data.stream import to_device
+from msckf_tpu_torch.filter.streamed import run_batched_streamed
 from msckf_tpu_torch.filter.update import _cholesky_gamma, _ns_gamma
 from msckf_tpu_torch.ops import kernels as K
+from msckf_tpu_torch.parallel.batched import (
+    data_mesh, sharded_run_sequence, shardmap_run_sequence,
+)
 
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -256,11 +269,17 @@ def default_runs():
         sts.append(jax_to_device(jax_build_stream(
             jcfg, seq.timestamps, seq.imu_gyro, seq.imu_acc, seq.cam_frame_ticks,
             seq.cam_keypoints, seq.cam_descriptors, seq.cam_scores, max_ticks=T), jcfg))
-    prefix = {k: jnp.stack([s.prefix[k] for s in sts]) for k in sts[0].prefix}
-    frames = {k: jnp.stack([s.frames[k] for s in sts]) for k in sts[0].frames}
-    states = jbatched.batched_initial_state(jcfg, len(SEEDS), jnp.stack([s.R_init for s in sts]))
-    jfinal, jpre, jfr = jax.jit(lambda s, p, f: jbatched.batched_run_sequence(jcfg, s, p, f))(
-        states, prefix, frames)
+    # the JAX package's batched run, jitted with the batch split over one
+    # virtual CPU device a sequence: its sharded_run_sequence, the reference
+    # of the port's batched and sharded runs alike
+    jmesh = jbatched.data_mesh(len(SEEDS))
+    prefix = jbatched.shard_batch(
+        {k: jnp.stack([s.prefix[k] for s in sts]) for k in sts[0].prefix}, jmesh)
+    frames = jbatched.shard_batch(
+        {k: jnp.stack([s.frames[k] for s in sts]) for k in sts[0].frames}, jmesh)
+    states = jbatched.shard_batch(jbatched.batched_initial_state(
+        jcfg, len(SEEDS), jnp.stack([s.R_init for s in sts])), jmesh)
+    jfinal, jpre, jfr = jbatched.sharded_run_sequence(jcfg, jmesh)(states, prefix, frames)
 
     cfg = mt.reference_experiment_config(**CAPS)
     std = to_device(mt.circle_streams(cfg, SEEDS, max_ticks=T, n_world_points=N_POINTS),
@@ -294,6 +313,94 @@ def test_batched_run_matches_single_runs(default_runs):
         want, _ = _port_single(dcfg, std, b)
         got = (_counters(final, b), _flatten(_seq_b(pre, b), _seq_b(fr, b)))
         _assert_same_run(got, want, atol=1e-9, rtol_sigma=1e-9)
+
+
+# --- the mesh functions ------------------------------------------------------
+
+
+def _same_state(a, b):
+    sa, sb = mt.state_to_numpy(a), mt.state_to_numpy(b)
+    for k in sa:
+        np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
+
+
+def _same_outputs(a, b):
+    for name, x, y in zip(a._fields, a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def sharded_run(default_runs):
+    """The port's sharded_run_sequence over one CPU shard a sequence."""
+    _, _, (cfg, std) = default_runs
+    mesh = data_mesh(devices=["cpu"] * len(SEEDS))
+    states = mt.batched_initial_state(cfg, len(SEEDS), std.R_init, device="cpu")
+    return sharded_run_sequence(cfg, mesh)(states, std.prefix, std.frames), mesh
+
+
+def test_sharded_run_matches_jax(default_runs, sharded_run):
+    """The port's sharded run against the JAX package's
+    ``sharded_run_sequence`` over as many virtual CPU devices."""
+    (jfinal, jpre, jfr), _, _ = default_runs
+    (final, pre, fr), mesh = sharded_run
+    assert mesh.size == len(SEEDS) and final.P.shape[0] == len(SEEDS)
+    for b in range(len(SEEDS)):
+        got = (_counters(final, b), _flatten(_seq_b(pre, b), _seq_b(fr, b)))
+        want = (_counters(jfinal, b), _flatten(_seq_b(jpre, b), _seq_b(jfr, b)))
+        assert got[1]["p_WI"].shape[0] == T
+        _assert_same_run(got, want, atol=1e-7, rtol_sigma=1e-4)
+
+
+def test_sharded_shards_equal_batched_runs_of_their_rows(default_runs, sharded_run):
+    _, _, (cfg, std) = default_runs
+    (final, pre, fr), mesh = sharded_run
+    per = len(SEEDS) // mesh.size
+    for i in range(mesh.size):
+        rows = slice(i * per, (i + 1) * per)
+        states = mt.batched_initial_state(cfg, per, std.R_init[rows], device="cpu")
+        want = mt.batched_run_sequence(cfg, states, {k: v[rows] for k, v in std.prefix.items()},
+                                       {k: v[rows] for k, v in std.frames.items()}, device="cpu")
+        _same_state(torch.utils._pytree.tree_map(lambda x: x[rows], final), want[0])
+        _same_outputs(type(pre)(*(x[rows] for x in pre)), want[1])
+        _same_outputs(type(fr)(*(x[rows] for x in fr)), want[2])
+
+
+def test_sharded_streamed_equals_sharded(default_runs, sharded_run):
+    _, _, (cfg, std) = default_runs
+    (final, pre, fr), mesh = sharded_run
+    host = {name: {k: v.numpy() for k, v in getattr(std, name).items()}
+            for name in ("prefix", "frames")}
+    states = mt.batched_initial_state(cfg, len(SEEDS), std.R_init, device="cpu")
+    sfinal, spre, sfr = run_batched_streamed(cfg, states, host["prefix"], host["frames"],
+                                             chunk_frames=7, sharding=mesh)
+    _same_state(sfinal, final)
+    _same_outputs(spre, pre)
+    _same_outputs(sfr, fr)
+
+
+def test_shardmap_matches_single_runs(default_runs):
+    """``shardmap_run_sequence`` over two CPU shards, two sequences, their
+    first half of the frames: each bitwise the port's ``run_sequence``."""
+    _, _, (cfg, std) = default_runs
+    mesh = data_mesh(devices=["cpu", "cpu"])
+    half = std.frames["imu_ts"].shape[1] // 2
+    prefix = {k: v[:2] for k, v in std.prefix.items()}
+    frames = {k: v[:2, :half] for k, v in std.frames.items()}
+    states = mt.batched_initial_state(cfg, 2, std.R_init[:2], device="cpu")
+    final, pre, fr = shardmap_run_sequence(cfg, mesh)(states, prefix, frames)
+    for b in range(2):
+        want = mt.run_sequence(cfg, mt.make_initial_state(cfg, std.R_init[b], device="cpu"),
+                               {k: v[b] for k, v in prefix.items()},
+                               {k: v[b] for k, v in frames.items()}, device="cpu")
+        _same_state(torch.utils._pytree.tree_map(lambda x: x[b], final), want[0])
+        _same_outputs(_seq_b(pre, b), want[1])
+        _same_outputs(_seq_b(fr, b), want[2])
+    with pytest.raises(ValueError, match="one sequence a device"):
+        shardmap_run_sequence(cfg, mesh)(
+            mt.batched_initial_state(cfg, 3, std.R_init, device="cpu"), std.prefix, std.frames)
+
+
+# --- the kernel paths under vmap ---------------------------------------------
 
 
 @pytest.mark.parametrize("overrides", [{}, {"update_kernel": "fused"}],

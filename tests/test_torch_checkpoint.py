@@ -10,7 +10,13 @@ checkpoint.py``), in the JAX package's ``.npz`` format.
 * a port checkpoint loads in the JAX package with equal leaves;
 * a checkpoint of another configuration's shapes raises ValueError;
 * the leaf order: the port's flattening of the state names the JAX
-  pytree's leaves in the JAX order, with equal shapes and kinds of dtype.
+  pytree's leaves in the JAX order, with equal shapes and kinds of dtype;
+* the directory pair on ``torch.distributed.checkpoint``
+  (``save_state_dcp`` / ``load_state_dcp``, the counterpart of the JAX
+  package's Orbax pair): it round-trips bit for bit and resumes mid-sequence
+  bit for bit; a state written by the JAX package's ``save_state`` and read
+  by the port goes through it unchanged; another configuration's shapes
+  raise ValueError.
 """
 
 import functools
@@ -92,10 +98,17 @@ def _assert_same_state(a, b):
         np.testing.assert_array_equal(sa[k], sb[k], err_msg=k)
 
 
-def test_port_resume_bit_exact(port, tmp_path):
+@pytest.fixture(scope="module")
+def uninterrupted(port):
     cfg, std = port
-    final_u, _, out_u = mt.run_sequence(cfg, mt.make_initial_state(cfg, std.R_init, device="cpu"),
-                                        std.prefix, std.frames, device="cpu")
+    final, _, out = mt.run_sequence(cfg, mt.make_initial_state(cfg, std.R_init, device="cpu"),
+                                    std.prefix, std.frames, device="cpu")
+    return final, out
+
+
+def test_port_resume_bit_exact(port, uninterrupted, tmp_path):
+    cfg, std = port
+    final_u, out_u = uninterrupted
     half = std.frames["imu_ts"].shape[0] // 2
     state, second = _port_halves(cfg, std, half)
     path = str(tmp_path / "ckpt.npz")
@@ -167,3 +180,41 @@ def test_leaf_order_matches_jax(port):
     for (p, leaf), (k, v) in zip(jpaths, ours.items()):
         assert tuple(leaf.shape) == tuple(v.shape), k
         assert np.asarray(leaf).dtype.kind == v.numpy().dtype.kind, k
+
+
+def test_dcp_pair_round_trips_and_resumes_bit_exact(port, uninterrupted, tmp_path):
+    cfg, std = port
+    final_u, out_u = uninterrupted
+    half = std.frames["imu_ts"].shape[0] // 2
+    state, second = _port_halves(cfg, std, half)
+    path = str(tmp_path / "dcp")
+    tck.save_state_dcp(path, state)
+    restored = tck.load_state_dcp(path, cfg, device="cpu")
+    _assert_same_state(restored, state)
+    for (k, a), b in zip(_flatten(restored, "", {}).items(), _flatten(state, "", {}).values()):
+        assert a.dtype == b.dtype and a.device.type == "cpu", k
+    final_r, out_r = run_filter(cfg, restored, second)
+    _assert_same_state(final_r, final_u)
+    for name in FIELDS:
+        np.testing.assert_array_equal(getattr(out_r, name).numpy(),
+                                      getattr(out_u, name)[half:].numpy(), err_msg=name)
+
+
+def test_jax_state_goes_through_the_dcp_pair(port, jax_run, tmp_path):
+    cfg, _ = port
+    jhalf = jax_run[2]
+    jck.save_state(str(tmp_path / "jax.npz"), jhalf)
+    state = tck.load_state(str(tmp_path / "jax.npz"), cfg, device="cpu")
+    tck.save_state_dcp(str(tmp_path / "dcp"), state)
+    back = tck.load_state_dcp(str(tmp_path / "dcp"), cfg, device="cpu")
+    for (k, v), leaf in zip(state_to_numpy(back).items(), jax.tree.leaves(jhalf)):
+        np.testing.assert_array_equal(v, np.asarray(leaf), err_msg=k)
+
+
+def test_dcp_wrong_shape_raises(port, tmp_path):
+    cfg, _ = port
+    path = str(tmp_path / "dcp")
+    tck.save_state_dcp(path, mt.init_state(cfg, device="cpu"))
+    other = mt.reference_experiment_config(**dict(CFG, f_max=256))
+    with pytest.raises(ValueError, match="shape"):
+        tck.load_state_dcp(path, other, device="cpu")

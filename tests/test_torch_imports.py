@@ -10,8 +10,8 @@
 * entry points run on CUDA unless the caller passes ``device="cpu"``, and
   raise without a GPU instead of carrying on on the CPU: the filter's, the
   batched path's, the image front-end's and image-in pipeline's, the
-  streamed runs', the checkpoint loader's, the runner's and the XFeat
-  trainer's;
+  streamed runs', the checkpoint loaders', the runner's, the XFeat
+  trainer's and the scale-out's (the meshes, the multi-process run);
 * the compensated correction island, the last configuration ported, runs
   one frame of a float32 filter as the JAX package's does; any
   ``prune_path`` but "masked" is the "cond" prune, as in the JAX package;
@@ -22,6 +22,7 @@
 """
 
 import ast
+import json
 import shutil
 import subprocess
 import sys
@@ -52,53 +53,69 @@ REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "msckf_tpu")
 
 
-def test_import_leaves_jax_and_flax_out():
-    code = (
-        "import sys, msckf_tpu_torch, msckf_tpu_torch.filter.msckf, "
-        "msckf_tpu_torch.ops.kernels, msckf_tpu_torch.data.stream, "
-        "msckf_tpu_torch.parallel.batched, msckf_tpu_torch.pipeline, "
-        "msckf_tpu_torch.models.xfeat, msckf_tpu_torch.models.frontend, "
-        "msckf_tpu_torch.data.rendered, msckf_tpu_torch.models.selfsup, "
-        "msckf_tpu_torch.models.train_xfeat, msckf_tpu_torch.models.frontend_eval; "
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'msckf_tpu')]; "
-        "print(bad); sys.exit(1 if bad else 0)"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 0, out.stdout + out.stderr
-
-
+PACKAGE_MODULES = (
+    "msckf_tpu_torch", "msckf_tpu_torch.filter.msckf", "msckf_tpu_torch.ops.kernels",
+    "msckf_tpu_torch.data.stream", "msckf_tpu_torch.parallel.batched",
+    "msckf_tpu_torch.pipeline", "msckf_tpu_torch.models.xfeat",
+    "msckf_tpu_torch.models.frontend", "msckf_tpu_torch.data.rendered",
+    "msckf_tpu_torch.models.selfsup", "msckf_tpu_torch.models.train_xfeat",
+    "msckf_tpu_torch.models.frontend_eval", "msckf_tpu_torch.parallel.multihost",
+    "msckf_tpu_torch.parallel.multihost_demo", "msckf_tpu_torch.parallel.xfeat_sharded",
+)
 SOURCES_MODULES = ("msckf_tpu_torch", "msckf_tpu_torch.data.imageio",
                    "msckf_tpu_torch.data.native_io", "msckf_tpu_torch.data.photorealistic",
                    "msckf_tpu_torch.utils.viz", "msckf_tpu_torch.ops.camera",
                    "msckf_tpu_torch.ops.geometry", "msckf_tpu_torch.filter.propagation",
                    "msckf_tpu_torch.runner")
+RUNNER_MODULES = ("msckf_tpu_torch.runner", "msckf_tpu_torch.filter.streamed",
+                  "msckf_tpu_torch.utils.checkpoint", "msckf_tpu_torch.utils.metrics",
+                  "msckf_tpu_torch.utils.consistency", "msckf_tpu_torch.data.parser")
+# one fresh interpreter imports the three lists in turn and reports, after
+# each import, the packages of the checked kinds then loaded: no list may
+# load a package that a list before it may load (none of them loads pandas,
+# OpenCV, matplotlib, rerun, jax, flax, optax or the JAX package)
+_STAGES = (("sources", SOURCES_MODULES), ("package", PACKAGE_MODULES),
+           ("runner", RUNNER_MODULES))
+_WATCHED = ("jax", "flax", "optax", "msckf_tpu", "pandas", "cv2", "matplotlib", "rerun")
 
 
-def test_sources_modules_load_no_optional_package():
-    """In a fresh interpreter, the package, then each module of the
-    dataset-sources slice: after each import, none of the packages the
-    card's machine lacks (pandas, OpenCV, matplotlib, rerun) is loaded, nor
-    jax or flax."""
+@pytest.fixture(scope="module")
+def fresh_imports():
     code = (
-        "import sys, importlib\n"
-        f"for m in {SOURCES_MODULES!r}:\n"
-        "    importlib.import_module(m)\n"
-        "    bad = [n for n in sys.modules if n.split('.')[0] in "
-        "('jax', 'flax', 'msckf_tpu', 'pandas', 'cv2', 'matplotlib', 'rerun')]\n"
-        "    if bad:\n"
-        "        print(m, bad)\n"
-        "        sys.exit(1)\n"
+        "import sys, importlib, json\n"
+        "seen = {}\n"
+        f"for stage, mods in {_STAGES!r}:\n"
+        "    for m in mods:\n"
+        "        importlib.import_module(m)\n"
+        "        seen.setdefault(stage, {})[m] = sorted(\n"
+        "            {n.split('.')[0] for n in sys.modules} & "
+        f"set({_WATCHED!r}))\n"
+        "print(json.dumps(seen))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-RUNNER_MODULES = ("msckf_tpu_torch.runner", "msckf_tpu_torch.filter.streamed",
-                  "msckf_tpu_torch.utils.checkpoint", "msckf_tpu_torch.utils.metrics",
-                  "msckf_tpu_torch.utils.consistency", "msckf_tpu_torch.data.parser")
+def test_import_leaves_jax_and_flax_out(fresh_imports):
+    bad = {m: set(v) & {"jax", "flax", "optax", "msckf_tpu"}
+           for m, v in fresh_imports["package"].items()}
+    assert list(fresh_imports["package"]) == list(PACKAGE_MODULES)
+    assert not any(bad.values()), bad
+
+
+def test_sources_modules_load_no_optional_package(fresh_imports):
+    """In a fresh interpreter, the package, then each module of the
+    dataset-sources slice: after each import, none of the packages the
+    card's machine lacks (pandas, OpenCV, matplotlib, rerun) is loaded, nor
+    jax or flax."""
+    forbidden = {"jax", "flax", "msckf_tpu", "pandas", "cv2", "matplotlib", "rerun"}
+    bad = {m: set(v) & forbidden for m, v in fresh_imports["sources"].items()}
+    assert list(fresh_imports["sources"]) == list(SOURCES_MODULES)
+    assert not any(bad.values()), bad
+
+
 # an import hook that makes these packages missing, as on the machine with
 # the GPU (no pandas, no OpenCV) and for the port in general (no JAX)
 _BLOCK = (
@@ -111,17 +128,11 @@ _BLOCK = (
 )
 
 
-def test_runner_modules_import_without_jax_pandas_or_cv2():
-    code = (
-        "import sys, importlib\n"
-        f"for m in {RUNNER_MODULES!r}: importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'flax', 'msckf_tpu', 'pandas', 'cv2')]\n"
-        "print(bad); sys.exit(1 if bad else 0)\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
-    assert out.returncode == 0, out.stdout + out.stderr
+def test_runner_modules_import_without_jax_pandas_or_cv2(fresh_imports):
+    bad = {m: set(v) & {"jax", "flax", "msckf_tpu", "pandas", "cv2"}
+           for m, v in fresh_imports["runner"].items()}
+    assert list(fresh_imports["runner"]) == list(RUNNER_MODULES)
+    assert not any(bad.values()), bad
     # and with those packages made unimportable, --help runs
     code = _BLOCK + (
         "import runpy\n"
@@ -288,6 +299,31 @@ def test_trainer_entry_points_raise_without_gpu(monkeypatch, tmp_path):
         train_xfeat.main(["--steps", "1", "--size", "32", "--batch", "1", "--pool", "1",
                           "--out", out])
     assert not (tmp_path / "w.npz").exists()
+
+
+def test_scaleout_entry_points_raise_without_gpu(monkeypatch, small, tmp_path):
+    """The meshes, the multi-process run and the DCP loader take the device
+    rule: the GPU unless asked for the CPU, raising without one."""
+    from msckf_tpu_torch.parallel import multihost as mh
+    from msckf_tpu_torch.parallel.batched import data_mesh
+    from msckf_tpu_torch.parallel.xfeat_sharded import xfeat_mesh
+    from msckf_tpu_torch.utils.checkpoint import load_state_dcp, save_state_dcp
+
+    cfg, st = small
+    path = str(tmp_path / "dcp")
+    save_state_dcp(path, mt.init_state(cfg, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (data_mesh, lambda: data_mesh(devices=["cuda:0", "cuda:0"]),
+                 mh.global_data_mesh, lambda: xfeat_mesh(1, 1),
+                 lambda: mh.init_distributed("127.0.0.1:1", 1, 0),
+                 lambda: load_state_dcp(path, cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert data_mesh(devices=["cpu", "cpu"]).devices == (torch.device("cpu"),) * 2
+    mesh = mh.global_data_mesh(device="cpu")
+    assert xfeat_mesh(1, 1, device="cpu").mesh_dim_names == ("data", "model")
+    assert mh.rank_device(mesh).type == "cpu"
+    assert load_state_dcp(path, cfg, device="cpu").P.device.type == "cpu"
 
 
 SMALL_FIELDS = ("dtype", "f_max", "u_max", "k_max", "m_max", "n_cam_slots",

@@ -8,6 +8,10 @@ the structural zeros of Phi_acc). The CUDA kernels themselves are held
 against these plain versions on the card by chip_smoke.py.
 """
 
+import threading
+import time
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -150,6 +154,34 @@ def test_verification_plan_rejects_empty_shapes(F, M):
         K.verification_plan(F, M)
 
 
+def test_library_is_built_and_loaded_once_by_threads_at_once(monkeypatch):
+    """Threads that make their first launch at once (one a shard in
+    ``shardmap_run_sequence``) build and load the kernel library once: a
+    second build raced the first to the same file. Build and load are
+    recorded, not made: the tests run on the CPU."""
+    builds = []
+
+    def build():
+        builds.append(threading.current_thread().name)
+        time.sleep(0.05)
+        return "libmsckf_kernels.so"
+
+    monkeypatch.setattr(K, "_LIBRARY", [])
+    monkeypatch.setattr(K, "build_kernels", build)
+    monkeypatch.setattr(K.ctypes, "CDLL", lambda path: types.SimpleNamespace(**{
+        name + suffix: types.SimpleNamespace() for name in K._SIGNATURES
+        for suffix in ("_f32", "_f64")}))
+    libs = []
+    threads = [threading.Thread(target=lambda: libs.append(K._library())) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(builds) == 1 and len(libs) == 4
+    assert all(lib is libs[0] for lib in libs)
+    assert libs[0].msckf_gating_f32.restype is K.ctypes.c_int
+
+
 def test_verification_launcher_passes_its_plan(monkeypatch):
     """The launcher hands the C entry point the eight inputs as they are
     (the camera pose, K and K^-1 each by its own pointer, no concatenated
@@ -157,7 +189,8 @@ def test_verification_launcher_passes_its_plan(monkeypatch):
     it), the three outputs with the batch axis, and the plan of its shapes.
     The launch is recorded, not made: the tests run on the CPU."""
     calls = []
-    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append((name, dt, args)))
+    monkeypatch.setattr(K, "_launch",
+                        lambda name, dt, dev, *args: calls.append((name, dt, dev, args)))
     monkeypatch.setattr(torch, "cat", None)
     rng = np.random.default_rng(3)
     for B, F, M, dtype, shared in ((1, 37, 40, torch.float64, False),
@@ -168,8 +201,8 @@ def test_verification_launcher_passes_its_plan(monkeypatch):
             args[6], args[7] = args[6][0], args[7][0]
         out = K._verification_launch(*args)
         assert all(o.shape == (B, F, M) and o.dtype == dtype for o in out)
-        name, dt, a = calls[-1]
-        assert name == "msckf_verification" and dt == dtype
+        name, dt, dev, a = calls[-1]
+        assert name == "msckf_verification" and dt == dtype and dev == args[1].device
         assert a[:8] == tuple(x.data_ptr() for x in args)
         assert a[8:12] == ((9, 3, 0, 0) if shared else (9, 3, 9, 9))
         assert a[12:15] == tuple(x.data_ptr() for x in out)
@@ -263,7 +296,7 @@ def test_propagate_launcher_passes_constant_strides(monkeypatch):
     sequence: 12 and 3 when they come stacked, 0 when the sequences share
     them. The launch is recorded, not made: the tests run on the CPU."""
     calls = []
-    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append((name, dt, args)))
+    monkeypatch.setattr(K, "_launch", lambda name, dt, dev, *args: calls.append((name, dt, args)))
     args = _prop_tensors(np.random.default_rng(12), 3, 2, torch.float32)
     for shared in (False, True):
         a = list(args)
@@ -375,7 +408,7 @@ def test_triage_and_p15_launchers_pass_their_plans(monkeypatch):
     allocate the outputs with the batch axis. The launch itself is recorded,
     not made: the tests run on the CPU."""
     calls = []
-    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append((name, args)))
+    monkeypatch.setattr(K, "_launch", lambda name, dt, dev, *args: calls.append((name, args)))
     rng = np.random.default_rng(7)
     for B, F, M in ((1, 37, 40), (3, 13, 1)):
         args = [_t(np.stack([a] * B)) for a in _triage_inputs(rng, F, M)]
@@ -466,7 +499,7 @@ def test_update_terms_scratch_follows_the_plan_not_the_batch(monkeypatch):
     run on the CPU."""
     calls = []
     gate_elems = {65: 65 * 66 // 2 + 9 * 65}  # as if 2M = 65 left shared memory
-    monkeypatch.setattr(K, "_launch", lambda name, dt, *args: calls.append(args))
+    monkeypatch.setattr(K, "_launch", lambda name, dt, dev, *args: calls.append(args))
     monkeypatch.setattr(K, "gate_scratch_elems", lambda dt, n, device: gate_elems.get(n, 0))
     rng = np.random.default_rng(3)
     D = 20

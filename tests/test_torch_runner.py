@@ -1,7 +1,7 @@
 """The port's CLI (``msckf_tpu_torch/runner.py``) against the JAX package's.
 
 ``main`` over 400 ticks of the synthetic circle in float64 on the CPU
-(``--device cpu``), each run a warm-up and a timed run:
+(``--device cpu``, where the runner makes no warm-up run):
 * against the JAX runner with the same flags: equal diagnostics; the
   estimated trajectory's metrics (ATE, AOE, RTE) within
   tests/test_parity.py's 1e-7 and the 3-sigma bounds within its rtol 1e-4
@@ -10,7 +10,8 @@
   about 1e-6 (4.1e-6 seen): it and its summaries are held to 1e-5;
 * ``--stream_chunk 7`` equal to the monolithic run bit for bit;
 * ``--batch 2`` over 200 ticks: the final errors within 1e-7 of the JAX
-  runner's on one CPU device;
+  runner's on one CPU device, and bitwise those of two ranks under the
+  torchrun environment contract (gloo), which split the batch;
 * the same circle written to disk with the port's ``save_sequence_csv`` and
   read through ``--data_root``: the in-memory run's numbers bit for bit, and
   ``--save_results`` writes results.txt;
@@ -28,6 +29,7 @@
 
 import argparse
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -40,7 +42,7 @@ from msckf_tpu_torch.data.parser import save_sequence_csv
 from msckf_tpu_torch.data.synthetic import generate_circle_sequence
 from msckf_tpu_torch.filter.state import state_to_numpy
 
-from tests.torch_fixtures import write_orbit_dataset
+from tests.torch_fixtures import free_port, run_ranks, write_orbit_dataset
 from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARGS = ["--source", "synthetic", "--max_frames", "400", "--dtype", "float64"]
@@ -98,16 +100,52 @@ def test_stream_chunk_equals_monolithic(runs, tmp_path):
     assert ts.stats.host_syncs == tm.stats.host_syncs + n_chunks
 
 
-def test_batch_matches_jax(tmp_path, monkeypatch):
-    args = ["--source", "synthetic", "--max_frames", "200", "--dtype", "float64",
-            "--batch", "2", "--data_root", str(tmp_path)]
-    errs = trunner.main(args + ["--device", "cpu"])
+BATCH_ARGS = ["--source", "synthetic", "--max_frames", "200", "--dtype", "float64",
+              "--batch", "2"]
+
+
+@pytest.fixture(scope="module")
+def batch_run(tmp_path_factory):
+    return trunner.main(BATCH_ARGS + ["--data_root", str(tmp_path_factory.mktemp("batch")),
+                                      "--device", "cpu"])
+
+
+def test_batch_matches_jax(batch_run, tmp_path, monkeypatch):
+    errs = batch_run
     monkeypatch.setattr(jax, "device_count", lambda: 1)
-    jerrs = jrunner.main(args)
+    jerrs = jrunner.main(BATCH_ARGS + ["--data_root", str(tmp_path)])
     assert len(errs) == len(jerrs) == 2
     np.testing.assert_allclose(errs, jerrs, rtol=0, atol=1e-7)
     assert max(errs) < 0.05
     assert errs.final.P.shape[0] == 2 and errs.cfg.f_max == 192
+
+
+_RANK = """
+import json
+from msckf_tpu_torch import runner
+errs = runner.main({argv!r})
+print("ERRS " + json.dumps(list(errs)), flush=True)
+"""
+
+
+def test_batch_under_torchrun_two_ranks(batch_run, tmp_path):
+    """``--batch 2`` under the torchrun environment contract (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT, LOCAL_RANK) with two ranks on the
+    CPU over gloo: each filters its row, rank 0 reports on 2 devices, and
+    every rank's gathered errors are bitwise the one-process run's, which
+    test_batch_matches_jax holds to JAX. One PyTorch thread a rank (the
+    stall that many threads met is held by test_torch_parallel.py)."""
+    port = free_port()
+    argv = BATCH_ARGS + ["--data_root", str(tmp_path), "--device", "cpu"]
+    env = [{"RANK": str(i), "LOCAL_RANK": str(i), "WORLD_SIZE": "2",
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
+           for i in range(2)]
+    outs = run_ranks([["-c", _RANK.format(argv=argv)]] * 2, env=env)
+    assert "batched VIO: 2 sequences on 2 device(s)" in outs[0]
+    assert "batched VIO" not in outs[1]
+    for out in outs:
+        errs = json.loads(out.split("ERRS ")[-1])
+        np.testing.assert_array_equal(errs, list(batch_run))
 
 
 def test_dataset_on_disk(runs, tmp_path):
@@ -153,8 +191,8 @@ def test_compensated_island_runs(tmp_path, monkeypatch):
             "--device", "cpu", "--data_root", str(tmp_path)]
     mc = trunner.main(args + ["--correction_dtype", "compensated"])
     assert mc.cfg.correction_dtype == "compensated" and mc.cfg.err_dim == 207
-    assert any(updates)  # warm-up and timed run: a call per camera step
-    assert len(updates) == 2 * mc.stats.camera_steps
+    assert any(updates)  # one run on the CPU: a call per camera step
+    assert len(updates) == mc.stats.camera_steps
     updates.clear()
     m64 = trunner.main(args + ["--correction_dtype", "float64"])
     assert not updates

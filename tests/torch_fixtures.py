@@ -4,10 +4,16 @@ the port alone (no jax, no JAX package, no pytest).
 * ``write_orbit_dataset``: a dataset in the TartanAir or PeringLab format,
   the camera orbit of tests/test_tartanair_e2e.py rendered by the port.
 * ``RecordingSink``: a stand-in for the rerun module that keeps every call.
+* ``free_port`` and ``run_ranks``: the ranks of a multi-process launch on
+  this host, each under a hard timeout.
 """
 
 from __future__ import annotations
 
+import os
+import socket
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -97,3 +103,34 @@ class RecordingSink:
 
     def log(self, path, payload):
         self.calls.append(("log", path, payload))
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(argvs, env=None, timeout=180):
+    """Start one process a rank with the given argument lists, all at
+    once, and return their outputs; any rank that fails or outlives
+    ``timeout`` fails the test, with every rank's output."""
+    procs = [subprocess.Popen([sys.executable, *argv], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True, cwd=ROOT,
+                              env={**os.environ, **(env[i] if env else {})})
+             for i, argv in enumerate(argvs)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, "a rank failed:\n" + "\n----\n".join(o[-3000:] for o in outs)
+    return outs
