@@ -14,8 +14,10 @@ import torch
 from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.state import FilterState, device_consts
 from msckf_tpu_torch.ops.geometry import skew
+from msckf_tpu_torch.utils import tracing
 
 
+@tracing.span("augment")
 def state_augmentation(cfg: MSCKFConfig, state: FilterState) -> FilterState:
     dt_ = cfg.jdtype
     dev = state.device

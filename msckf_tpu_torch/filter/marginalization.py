@@ -19,6 +19,7 @@ from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.state import FilterState, select_state
 from msckf_tpu_torch.filter.tracks import compact_observations, select_rows, stable_rank
 from msckf_tpu_torch.filter.update import ekf_update, triage_features
+from msckf_tpu_torch.utils import tracing
 
 
 def remove_cameras(cfg: MSCKFConfig, state: FilterState, victim: torch.Tensor) -> FilterState:
@@ -120,6 +121,7 @@ def select_prune_victims(cfg: MSCKFConfig, state: FilterState) -> torch.Tensor:
     return stable_rank(key) < n_victims
 
 
+@tracing.span("prune")
 def prune_poorest_camera_states(cfg: MSCKFConfig, state: FilterState, enable=None,
                                 branchless: bool = False, stats=None,
                                 batched: bool = False) -> FilterState:

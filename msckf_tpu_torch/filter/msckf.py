@@ -43,6 +43,7 @@ from msckf_tpu_torch.filter.update import ekf_update, triage_features
 from msckf_tpu_torch.filter.verification import verify_matches
 from msckf_tpu_torch.ops.device import check_on_device, resolve_device
 from msckf_tpu_torch.ops.precision import with_f32_matmuls
+from msckf_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -70,53 +71,56 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 def add_camera_measurements(cfg: MSCKFConfig, state: FilterState, kp, desc, score,
                             kp_valid) -> FilterState:
     """Score filter, match, verify, extend/spawn tracks."""
-    dt_ = cfg.jdtype
-    kp = kp.to(dt_)
-    desc = desc.to(dt_)
-    score = score.to(dt_)
-
-    # keypoint score filter: keep score >= 0.5 * mean
-    n_kp = torch.sum(kp_valid)
-    mean = torch.sum(torch.where(kp_valid, score, torch.zeros_like(score))) / torch.clamp(n_kp, min=1)
-    keep = kp_valid & (score >= 0.5 * mean)
-
-    cam_slot = state.cams.n - 1  # just augmented
-    cam_R = _take(state.cams.R, cam_slot)
-    cam_t = _take(state.cams.t, cam_slot)
-    cam_id = state.imu.step_id
-
-    # the reference's early exits (no kept keypoints, first frame, no
-    # matches) collapse into one activity mask
     tr = state.tracks
     dg = state.diag
-    m = mutual_match(fused_descriptors(tr), tr.valid, desc, keep, cfg.min_cosine_similarity)
-    no_tracks = ~torch.any(tr.valid)
-    act = torch.any(keep) & (m.any_match | no_tracks)
+    with tracing.span("match"):
+        dt_ = cfg.jdtype
+        kp = kp.to(dt_)
+        desc = desc.to(dt_)
+        score = score.to(dt_)
 
-    kp2 = select_rows(m.track_to_kp, True, kp)  # (F, 2)
+        # keypoint score filter: keep score >= 0.5 * mean
+        n_kp = torch.sum(kp_valid)
+        mean = (torch.sum(torch.where(kp_valid, score, torch.zeros_like(score)))
+                / torch.clamp(n_kp, min=1))
+        keep = kp_valid & (score >= 0.5 * mean)
+
+        cam_slot = state.cams.n - 1  # just augmented
+        cam_R = _take(state.cams.R, cam_slot)
+        cam_t = _take(state.cams.t, cam_slot)
+        cam_id = state.imu.step_id
+
+        # the reference's early exits (no kept keypoints, first frame, no
+        # matches) collapse into one activity mask
+        m = mutual_match(fused_descriptors(tr), tr.valid, desc, keep, cfg.min_cosine_similarity)
+        no_tracks = ~torch.any(tr.valid)
+        act = torch.any(keep) & (m.any_match | no_tracks)
+        kp2 = select_rows(m.track_to_kp, True, kp)  # (F, 2)
+
     v = verify_matches(cfg, tr, state.cams, m.track_matched, kp2, cam_R, cam_t)
-    tr, (ext_colmask, ext_row) = extend_tracks(
-        cfg, tr, v.accept, kp2,
-        select_rows(m.track_to_kp, True, desc),
-        select_rows(m.track_to_kp, True, score),
-        cam_R, cam_t, cam_id, defer_obs=True,
-    )
-    # rejected matches and unmatched tracks age by one frame
-    bump = ((m.track_matched & ~v.accept) | (tr.valid & ~m.track_matched)) & act
-    tr = tr.replace(lost=tr.lost + bump.to(tr.lost.dtype))
-    dg = dg.replace(
-        n_homography_rejected=dg.n_homography_rejected + v.n_homo_rejected,
-        n_epipolar_rejected=dg.n_epipolar_rejected + v.n_epi_rejected,
-    )
-    tracks, diag, next_id, (sp_written, sp_row) = spawn_tracks(
-        cfg, tr, dg, state.next_track_id, kp, desc, score,
-        keep & ~m.kp_matched & act, cam_R, cam_t, cam_id, defer_obs=True,
-    )
-    # one write of the observation buffer for both (row-disjoint) updates
-    col0 = torch.arange(cfg.m_max, device=kp.device) == 0
-    wmask = ext_colmask | (sp_written[:, None] & col0[None, :])  # (F, M)
-    vals = torch.where(sp_written[:, None], sp_row, ext_row)  # (F, C)
-    tracks = tracks.replace(obs=torch.where(wmask[..., None], vals[:, None, :], tracks.obs))
+    with tracing.span("tracks"):
+        tr, (ext_colmask, ext_row) = extend_tracks(
+            cfg, tr, v.accept, kp2,
+            select_rows(m.track_to_kp, True, desc),
+            select_rows(m.track_to_kp, True, score),
+            cam_R, cam_t, cam_id, defer_obs=True,
+        )
+        # rejected matches and unmatched tracks age by one frame
+        bump = ((m.track_matched & ~v.accept) | (tr.valid & ~m.track_matched)) & act
+        tr = tr.replace(lost=tr.lost + bump.to(tr.lost.dtype))
+        dg = dg.replace(
+            n_homography_rejected=dg.n_homography_rejected + v.n_homo_rejected,
+            n_epipolar_rejected=dg.n_epipolar_rejected + v.n_epi_rejected,
+        )
+        tracks, diag, next_id, (sp_written, sp_row) = spawn_tracks(
+            cfg, tr, dg, state.next_track_id, kp, desc, score,
+            keep & ~m.kp_matched & act, cam_R, cam_t, cam_id, defer_obs=True,
+        )
+        # one write of the observation buffer for both (row-disjoint) updates
+        col0 = torch.arange(cfg.m_max, device=kp.device) == 0
+        wmask = ext_colmask | (sp_written[:, None] & col0[None, :])  # (F, M)
+        vals = torch.where(sp_written[:, None], sp_row, ext_row)  # (F, C)
+        tracks = tracks.replace(obs=torch.where(wmask[..., None], vals[:, None, :], tracks.obs))
     return state.replace(tracks=tracks, diag=diag, next_track_id=next_id)
 
 
@@ -127,10 +131,11 @@ def process_features(cfg: MSCKFConfig, state: FilterState) -> FilterState:
     any_valid = torch.any(tri.valid)
 
     state = ekf_update(cfg, state, tri.valid)
-    tr = state.tracks
-    state = state.replace(tracks=tr.replace(valid=tr.valid & ~(tri.lost & any_valid)))
-    empty = cameras_without_features(cfg, state) & any_valid
-    return remove_cameras(cfg, state, empty)
+    with tracing.span("marginalize"):
+        tr = state.tracks
+        state = state.replace(tracks=tr.replace(valid=tr.valid & ~(tri.lost & any_valid)))
+        empty = cameras_without_features(cfg, state) & any_valid
+        return remove_cameras(cfg, state, empty)
 
 
 @with_f32_matmuls
@@ -212,6 +217,7 @@ def _stack_outputs(outs) -> TickOutput:
     return TickOutput(*(torch.stack(list(x)) for x in zip(*outs)))
 
 
+@tracing.span("frame")
 @with_f32_matmuls
 def frame_step(cfg: MSCKFConfig, state: FilterState, frame: dict,
                assume_camera: bool = False, stats: FrameStats | None = None,
@@ -223,7 +229,9 @@ def frame_step(cfg: MSCKFConfig, state: FilterState, frame: dict,
     are dropped. ``batched``: the call runs under ``torch.func.vmap`` (the
     batched entry points pass it), so each branch is a select of both
     branches and nothing is read on the host. Returns (state, TickOutput
-    with a leading B axis)."""
+    with a leading B axis). The span ``frame`` covers the call; its own
+    time, outside the spans of the layers it calls, is the assembly of the
+    tick outputs."""
     ts, gyro, acc, valid = (
         frame["imu_ts"], frame["imu_gyro"], frame["imu_acc"], frame["imu_valid"]
     )

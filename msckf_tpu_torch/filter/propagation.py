@@ -25,6 +25,7 @@ from msckf_tpu_torch.ops import kernels
 from msckf_tpu_torch.ops.device import check_on_device, resolve_device
 from msckf_tpu_torch.ops.geometry import rodrigues_unit, skew
 from msckf_tpu_torch.ops.precision import with_f32_matmuls
+from msckf_tpu_torch.utils import tracing
 
 
 def _with_imu_block(P: torch.Tensor, P15: torch.Tensor, Phi_acc: torch.Tensor):
@@ -138,6 +139,7 @@ def _phi_q_for_tick(cfg: MSCKFConfig, imu: ImuState, gyro, acc, timestamp):
     return imu_new, Phi, Q
 
 
+@tracing.span("propagate")
 def propagate_block(cfg: MSCKFConfig, state: FilterState, ts_b, gyro_b, acc_b, valid_b):
     """Propagate a block of B IMU ticks; returns (state, per-tick outputs
     (R (B,3,3), p (B,3), v (B,3), sigma_rot (B,3), sigma_pos (B,3), valid))."""

@@ -22,6 +22,7 @@ import torch
 
 from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.ops.device import resolve_device
+from msckf_tpu_torch.utils import tracing
 
 I64 = torch.int64
 
@@ -243,6 +244,7 @@ for _cls in (*_STATE_CLASSES.values(), FilterState):
     torch.utils._pytree.register_dataclass(_cls)
 
 
+@tracing.span("select")
 def select_state(pred: torch.Tensor, on_true, on_false):
     """What ``jax.vmap`` makes of ``lax.cond``: both branches have run, and
     every leaf of the result is the true branch's where ``pred``, else the

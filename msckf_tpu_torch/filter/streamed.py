@@ -251,6 +251,5 @@ def run_batched_streamed(cfg: MSCKFConfig, states: FilterState, prefix: dict, fr
         shards.append((dev, {k: np.asarray(v)[rows] for k, v in prefix.items()},
                        {k: np.asarray(v)[rows] for k, v in frames.items()},
                        lambda pre, st=st: prefix_step(st, pre)))
-    finals, pre_out, frame_out = _stream(cfg, shards, 1, chunk_frames,
-                                         lambda st, fr: vstep(st, fr)[:2], None)
+    finals, pre_out, frame_out = _stream(cfg, shards, 1, chunk_frames, vstep, None)
     return _gather(finals, mesh.devices[0]), pre_out, frame_out

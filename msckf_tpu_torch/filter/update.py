@@ -57,6 +57,7 @@ from msckf_tpu_torch.ops.smallmat import (
 )
 from msckf_tpu_torch.ops.solve import chol_gain_solve, gain_solve, ns_inverse, ns_solve_direct
 from msckf_tpu_torch.ops.triangulation import intersect_lines, refine_inverse_depth_gn
+from msckf_tpu_torch.utils import tracing
 
 
 class TriageResult(NamedTuple):
@@ -65,6 +66,7 @@ class TriageResult(NamedTuple):
     lost: torch.Tensor  # (F,) bool — features to delete after the update
 
 
+@tracing.span("triage")
 def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) -> TriageResult:
     """Valid = (lost with a long-enough history) or (parallax between first
     and last bearing above threshold); valid tracks are triangulated by
@@ -154,6 +156,7 @@ class UpdateTerms(NamedTuple):
     n_overflow: torch.Tensor  # () int — valid features beyond u_max
 
 
+@tracing.span("update_terms")
 def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor) -> UpdateTerms:
     """Residuals, OC-projected Jacobians, nullspace projection, chi-square
     gate and the information-form accumulation: the fused update-terms
@@ -260,12 +263,13 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     # chi-square gate: gamma = r~^T S^-1 r~ with S = H~ P H~^T + sigma^2 I
     HP = torch.einsum("urd,de->ure", H_t, state.P[15:, 15:])
     S = torch.einsum("ure,use->urs", HP, H_t) + sigma2 * torch.eye(2 * M, dtype=dt_, device=dev)
-    if cfg.gating_solver == "ns":
-        gamma = _ns_gamma(S, r_t, cfg.gating_ns_iters, sigma2)
-    elif cfg.use_pallas and cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
-        gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
-    else:
-        gamma = _cholesky_gamma(S, r_t)
+    with tracing.span("gate"):
+        if cfg.gating_solver == "ns":
+            gamma = _ns_gamma(S, r_t, cfg.gating_ns_iters, sigma2)
+        elif cfg.use_pallas and cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
+            gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
+        else:
+            gamma = _cholesky_gamma(S, r_t)
     passed = sel_ok & (gamma <= crit)  # NaN crit (dof 0) and NaN gamma fail
     n_rej = torch.sum(sel_ok & ~passed)
 
@@ -404,6 +408,7 @@ def _correction_terms_compensated(cfg: MSCKFConfig, P, A, c):
     return dw.df_round(delta).to(cfg.jdtype), P_new
 
 
+@tracing.span("correct")
 def apply_correction(cfg: MSCKFConfig, state: FilterState, A, c) -> FilterState:
     """Information-form Kalman gain, Joseph covariance update, exp-map state
     correction with polar re-orthonormalization. The double-word island

@@ -21,6 +21,7 @@ from msckf_tpu_torch.filter.tracks import gather_cam_poses
 from msckf_tpu_torch.ops import kernels
 from msckf_tpu_torch.ops.geometry import skew
 from msckf_tpu_torch.ops.smallmat import matmul_small, matvec_small, transpose_small
+from msckf_tpu_torch.utils import tracing
 
 
 class VerifyResult(NamedTuple):
@@ -29,6 +30,7 @@ class VerifyResult(NamedTuple):
     n_epi_rejected: torch.Tensor  # () int
 
 
+@tracing.span("verify")
 def verify_matches(cfg: MSCKFConfig, tracks: TrackStore, cams: CameraStates,
                    candidate: torch.Tensor, kp2: torch.Tensor,
                    cam_R: torch.Tensor, cam_t: torch.Tensor) -> VerifyResult:

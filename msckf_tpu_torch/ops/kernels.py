@@ -36,6 +36,8 @@ from pathlib import Path
 
 import torch
 
+from msckf_tpu_torch.utils import tracing
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -51,33 +53,28 @@ NVCC_FLAGS = (
 # differ between the two.
 EXTRA_FLAGS = {"verification.cu": ("--fmad=false",), "triage.cu": ("--fmad=false",)}
 
-# launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {
-    "batched_gating_gamma": 0,
-    "verification_scores": 0,
-    "p15_recurrence_fused": 0,
-    "propagate_block_fused": 0,
-    "triage_refresh_fused": 0,
-    "update_terms_fused": 0,
-}
-
-
-_LAUNCHES_LOCK = threading.Lock()
+# launches of each kernel, counted by its wrapper where it launches, in the
+# tracing module's counter registry (always on)
+LAUNCHES = tracing.counter_group("launches", (
+    "batched_gating_gamma",
+    "verification_scores",
+    "p15_recurrence_fused",
+    "propagate_block_fused",
+    "triage_refresh_fused",
+    "update_terms_fused",
+))
 
 
 def _count(name: str) -> None:
-    # host threads may launch at once (parallel/batched.py::shardmap_run_sequence)
-    with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+    tracing.count("launches", name)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    tracing.reset_counters("launches")
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    return tracing.counters("launches")
 
 
 # --------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from msckf_tpu_torch.filter.msckf import (
 from msckf_tpu_torch.filter.state import FilterState
 from msckf_tpu_torch.ops.device import check_on_device, resolve_device
 from msckf_tpu_torch.ops.precision import with_f32_matmuls
+from msckf_tpu_torch.utils import tracing
 
 _DEFAULT_NS_ITERS = next(
     f.default for f in dataclasses.fields(MSCKFConfig) if f.name == "gating_ns_iters"
@@ -105,24 +106,27 @@ def _check_inputs(states: FilterState, streams, device) -> torch.device:
     return dev
 
 
-def vmapped_frame_step(cfg: MSCKFConfig, assume_camera: bool):
+def vmapped_frame_step(cfg: MSCKFConfig, assume_camera: bool, tally: bool = False):
     """The vmapped frame step, with ``cfg`` as given (no dispatch, no
-    checks): (states, frames) -> (states, TickOutput, per-sequence counts
-    of camera steps, prunes and prune updates)."""
+    checks): (states, frames) -> (states, TickOutput), and with ``tally``
+    after them the per-sequence counts of camera steps, prunes and prune
+    updates (``FrameStats.DEVICE_COUNTS``)."""
 
     def one(state, frame):
-        tally = FrameStats()
-        state, out = frame_step(cfg, state, frame, assume_camera, tally, batched=True)
+        return frame_step(cfg, state, frame, assume_camera, batched=True)
+
+    def counted(state, frame):
+        stats = FrameStats()
+        state, out = frame_step(cfg, state, frame, assume_camera, stats, batched=True)
         # a host count (the camera steps under assume_camera) becomes a
         # device tensor by a fill, not by a copy, which would synchronize
-        counts = [
+        return state, out, *(
             n if isinstance(n, torch.Tensor)
             else torch.full((), n, dtype=torch.int64, device=state.device)
-            for n in (getattr(tally, f) for f in FrameStats.DEVICE_COUNTS)
-        ]
-        return state, out, counts
+            for n in (getattr(stats, f) for f in FrameStats.DEVICE_COUNTS)
+        )
 
-    return torch.func.vmap(one)
+    return torch.func.vmap(counted if tally else one)
 
 
 @with_f32_matmuls
@@ -132,12 +136,12 @@ def batched_frame_step(cfg: MSCKFConfig, states: FilterState, frames: dict,
     """One camera-frame block for a batch of independent filters (a leading
     batch axis on the states and on every frame field) on ``device`` (the
     GPU unless ``device="cpu"``). Returns (states, TickOutput with leading
-    (batch, B) axes)."""
-    if dispatch_auto:
-        cfg = batched_dispatch(cfg)
-    _check_inputs(states, (frames,), device)
-    states, out, _ = vmapped_frame_step(cfg, assume_camera)(states, frames)
-    return states, out
+    (batch, B) axes). The span ``step`` covers the call."""
+    with tracing.span("step", memory=True):
+        if dispatch_auto:
+            cfg = batched_dispatch(cfg)
+        _check_inputs(states, (frames,), device)
+        return vmapped_frame_step(cfg, assume_camera)(states, frames)
 
 
 def _run_shards(cfg: MSCKFConfig, shards, devices, assume_camera: bool,
@@ -152,11 +156,11 @@ def _run_shards(cfg: MSCKFConfig, shards, devices, assume_camera: bool,
         _check_inputs(states, (prefix, frames), dev)
     prefix_step = torch.func.vmap(lambda s, p: propagate_prefix(cfg, s, p))
     states, pre_outs = map(list, zip(*(prefix_step(st, pre) for st, pre, _ in shards)))
-    step = vmapped_frame_step(cfg, assume_camera)
+    step = vmapped_frame_step(cfg, assume_camera, tally=stats is not None)
     outs = [[] for _ in shards]
     for j in range(shards[0][2]["imu_ts"].shape[1]):
         for i, (_, _, frames) in enumerate(shards):
-            states[i], out, counts = step(states[i], {k: v[:, j] for k, v in frames.items()})
+            states[i], out, *counts = step(states[i], {k: v[:, j] for k, v in frames.items()})
             outs[i].append(out)
         if stats is not None:
             stats.frames += 1
