@@ -4,7 +4,9 @@
 Removal is a compaction permutation over the padded buffers: surviving
 cameras keep their insertion order, vacated slots are zeroed. With no
 victims the permutation is the identity, so ``remove_cameras`` needs no
-branch. The prune's second update keeps the JAX package's ``lax.cond`` on
+branch. Which camera an observation belongs to is looked up once, as its
+slot (``observation_cam_slots``); counts, first encounters and victim
+membership are scatters into and gathers from (N,) over those slots. The prune's second update keeps the JAX package's ``lax.cond`` on
 ``any(triage.valid)`` in one of three forms: a Python branch (one host sync
 on a frame that prunes), a select of both branches under
 ``torch.func.vmap``, or, with ``branchless``, the update run unconditionally
@@ -22,10 +24,33 @@ from msckf_tpu_torch.filter.update import ekf_update, triage_features
 from msckf_tpu_torch.utils import tracing
 
 
-def remove_cameras(cfg: MSCKFConfig, state: FilterState, victim: torch.Tensor) -> FilterState:
+def observation_cam_slots(state: FilterState):
+    """Each observation's camera slot: ``(slot, found)``, both (F, M), the
+    valid slot holding the observation's camera id and whether one does
+    (``slot`` is meaningless where not ``found``).
+
+    A binary search of the ids in slot order, which relies on the window's
+    invariant: the valid slots are a prefix, in augmentation order (a new
+    camera takes slot ``n``, a removal compacts the survivors in order), so
+    their ids (the IMU step of each augmentation) ascend strictly, and free
+    slots hold -1. Every per-camera question below is then a gather from or
+    a scatter into (N,) over the (F, M) slots, with the same answer as the
+    (F, M, N) compare of observation ids against slot ids."""
+    cams = state.cams
+    N = cams.cam_id.shape[0]
+    key = torch.where(cams.valid, cams.cam_id, torch.iinfo(torch.int64).max)  # ascending
+    obs_id = state.tracks.obs_cam_id
+    slot = torch.clamp(torch.searchsorted(key, obs_id), max=N - 1)
+    return slot, key[slot] == obs_id
+
+
+def remove_cameras(cfg: MSCKFConfig, state: FilterState, victim: torch.Tensor,
+                   slots=None) -> FilterState:
     """Marginalize the cameras marked in ``victim`` (slot mask): delete their
     6 covariance rows/cols (permute-compact, zero the tail), drop their
-    observations from every track (order-preserving), delete emptied tracks."""
+    observations from every track (order-preserving), delete emptied tracks.
+    ``slots``: ``observation_cam_slots`` of a state with the same
+    observations and camera ids, where the caller has it."""
     N, D = cfg.n_cam_slots, cfg.err_dim
     dev = state.device
     cams = state.cams
@@ -62,60 +87,58 @@ def remove_cameras(cfg: MSCKFConfig, state: FilterState, victim: torch.Tensor) -
     P = torch.where(live_rows[:, None] & live_rows[None, :], P,
                     torch.zeros((), dtype=P.dtype, device=dev))
 
-    obs_is_victim = _obs_in_cam_mask(state.tracks.obs_cam_id, cams.cam_id, victim)
-    tracks = compact_observations(state.tracks, ~obs_is_victim)
+    slot, found = observation_cam_slots(state) if slots is None else slots
+    tracks = compact_observations(state.tracks, ~(victim[slot] & found))
     return state.replace(cams=new_cams, P=P, tracks=tracks)
 
 
-def _obs_in_cam_mask(obs_cam_id, cam_ids, cam_mask) -> torch.Tensor:
-    """(F, M) bool: the observation's camera id resolves to a slot in
-    ``cam_mask``."""
-    eq = obs_cam_id[..., None] == cam_ids  # (F, M, N)
-    return torch.any(eq & cam_mask, dim=-1)
-
-
-def _per_camera_obs_mask(state: FilterState) -> torch.Tensor:
-    """(F, M, N) bool: live observation (f, m) belongs to camera slot n."""
+def _live_slots(state: FilterState, slots):
+    """(slot, live): each observation's slot, and whether it is a live
+    observation of a live track in a valid slot."""
     tr = state.tracks
-    eq = tr.obs_cam_id[..., None] == state.cams.cam_id
-    return eq & (tr.valid[:, None] & tr.obs_valid)[..., None]
+    slot, found = observation_cam_slots(state) if slots is None else slots
+    return slot.reshape(-1), (found & tr.valid[:, None] & tr.obs_valid).reshape(-1)
 
 
-def cameras_without_features(cfg: MSCKFConfig, state: FilterState) -> torch.Tensor:
+def cameras_without_features(cfg: MSCKFConfig, state: FilterState, slots=None) -> torch.Tensor:
     """Slot mask of active cameras observed by no live track."""
-    any_obs = torch.any(_per_camera_obs_mask(state).flatten(0, 1), dim=0)
-    return state.cams.valid & ~any_obs
+    return state.cams.valid & (camera_observation_counts(cfg, state, slots) == 0)
 
 
-def camera_observation_counts(cfg: MSCKFConfig, state: FilterState) -> torch.Tensor:
-    """Features-per-camera histogram."""
-    return torch.sum(_per_camera_obs_mask(state).flatten(0, 1), dim=0)
+def camera_observation_counts(cfg: MSCKFConfig, state: FilterState, slots=None) -> torch.Tensor:
+    """Features-per-camera histogram: live observations scattered into
+    their slots."""
+    slot, live = _live_slots(state, slots)
+    zeros = torch.zeros(cfg.n_cam_slots, dtype=torch.int64, device=state.device)
+    return zeros.scatter_add(0, slot, live.to(torch.int64))
 
 
-def camera_first_encounter_rank(cfg: MSCKFConfig, state: FilterState) -> torch.Tensor:
+def camera_first_encounter_rank(cfg: MSCKFConfig, state: FilterState, slots=None) -> torch.Tensor:
     """Rank of each camera slot by the order the reference first encounters
     it: features in creation order (``track_id``), each feature's
-    observations chronologically."""
-    tr = state.tracks
-    F, M = cfg.f_max, cfg.m_max
+    observations chronologically. A camera's first encounter is its live
+    observation with the smallest (``track_id``, column): the ids of valid
+    tracks are unique and non-negative (each spawn takes the next), so
+    they order the tracks as their creation ranks do."""
+    M = cfg.m_max
     dev = state.device
-    per_cam = _per_camera_obs_mask(state)  # (F, M, N)
-    seq = torch.where(tr.valid, tr.track_id, 1 << 30)
-    trank = stable_rank(seq)
-    enc = trank[:, None] * M + torch.arange(M, device=dev)[None, :]  # (F, M)
-    first = torch.amin(
-        torch.where(per_cam, enc[..., None], F * M).flatten(0, 1), dim=0
-    )
+    enc = state.tracks.track_id[:, None] * M + torch.arange(M, device=dev)[None, :]  # (F, M)
+    slot, live = _live_slots(state, slots)
+    unseen = torch.iinfo(torch.int64).max
+    first = torch.full((cfg.n_cam_slots,), unseen, dtype=torch.int64, device=dev)
+    first = first.scatter_reduce(0, slot, torch.where(live, enc.reshape(-1), unseen), "amin")
     return stable_rank(first)
 
 
-def select_prune_victims(cfg: MSCKFConfig, state: FilterState) -> torch.Tensor:
+def select_prune_victims(cfg: MSCKFConfig, state: FilterState, slots=None) -> torch.Tensor:
     """Slot mask of the (up to) two observed cameras with the fewest
     observations, count ties broken by first-encounter order."""
     N = cfg.n_cam_slots
-    counts = camera_observation_counts(cfg, state)
+    if slots is None:
+        slots = observation_cam_slots(state)
+    counts = camera_observation_counts(cfg, state, slots)
     eligible = state.cams.valid & (counts > 0)
-    enc_rank = camera_first_encounter_rank(cfg, state)
+    enc_rank = camera_first_encounter_rank(cfg, state, slots)
     key = torch.where(eligible, counts * N + enc_rank, 1 << 24)
     n_victims = torch.clamp(torch.sum(eligible), max=2)
     return stable_rank(key) < n_victims
@@ -138,13 +161,14 @@ def prune_poorest_camera_states(cfg: MSCKFConfig, state: FilterState, enable=Non
     branch reads ``any(valid)`` on the host (one sync, counted in
     ``stats``). ``stats.prune_updates`` counts prunes whose update ran: a
     device tensor where a host count would need a sync."""
-    victim = select_prune_victims(cfg, state)
+    # triage and the update write neither the observations nor the camera
+    # ids, so this lookup serves the victims, the subset and the removal
+    slots = observation_cam_slots(state)
+    slot, found = slots
+    victim = select_prune_victims(cfg, state, slots)
     if enable is not None:
         victim = victim & enable
-    in_victim = (
-        _obs_in_cam_mask(state.tracks.obs_cam_id, state.cams.cam_id, victim)
-        & state.tracks.obs_valid
-    )
+    in_victim = victim[slot] & found & state.tracks.obs_valid
     subset = state.tracks.valid & torch.any(in_victim, dim=-1)
 
     tri = triage_features(cfg, state, subset)
@@ -162,4 +186,4 @@ def prune_poorest_camera_states(cfg: MSCKFConfig, state: FilterState, enable=Non
             stats.prune_updates += int(run_update)
         if run_update:
             state = ekf_update(cfg, state, tri.valid)
-    return remove_cameras(cfg, state, victim)
+    return remove_cameras(cfg, state, victim, slots)

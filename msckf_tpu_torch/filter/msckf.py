@@ -33,7 +33,8 @@ import torch
 from msckf_tpu_torch.config import MSCKFConfig
 from msckf_tpu_torch.filter.augmentation import state_augmentation
 from msckf_tpu_torch.filter.marginalization import (
-    cameras_without_features, prune_poorest_camera_states, remove_cameras,
+    cameras_without_features, observation_cam_slots, prune_poorest_camera_states,
+    remove_cameras,
 )
 from msckf_tpu_torch.filter.matching import fused_descriptors, mutual_match
 from msckf_tpu_torch.filter.propagation import propagate_block
@@ -134,8 +135,9 @@ def process_features(cfg: MSCKFConfig, state: FilterState) -> FilterState:
     with tracing.span("marginalize"):
         tr = state.tracks
         state = state.replace(tracks=tr.replace(valid=tr.valid & ~(tri.lost & any_valid)))
-        empty = cameras_without_features(cfg, state) & any_valid
-        return remove_cameras(cfg, state, empty)
+        slots = observation_cam_slots(state)
+        empty = cameras_without_features(cfg, state, slots) & any_valid
+        return remove_cameras(cfg, state, empty, slots)
 
 
 @with_f32_matmuls

@@ -124,14 +124,17 @@ def compact_observations(tracks: TrackStore, obs_keep: torch.Tensor) -> TrackSto
     kept_rank = torch.cumsum(keep, dim=1) - 1  # (F, M)
     n_obs = torch.sum(keep, dim=1)
     track_alive = tracks.valid & (n_obs > 0)
-    # source column of each destination row: oh[f, i, j] = obs j lands at row i
-    oh = keep[:, None, :] & (kept_rank[:, None, :] == torch.arange(M, device=dev)[None, :, None])
-    src = torch.argmax(oh.to(torch.uint8), dim=2)  # (F, M)
+    # source column of each destination row: kept obs j lands at row
+    # kept_rank[j]; the others spill into column M; rows past n_obs read 0
+    cols = torch.arange(M, device=dev).expand(F, M)
+    dest = torch.where(keep, kept_rank, M)
+    src = torch.zeros((F, M + 1), dtype=cols.dtype, device=dev).scatter(1, dest, cols)[:, :M]
     row_live = torch.arange(M, device=dev)[None, :] < n_obs[:, None]
     obs = torch.gather(tracks.obs, 1, src[..., None].expand(tracks.obs.shape))
-    obs = _rows_where(row_live, obs)
+    # one pass writes the dead rows: zero, with the -1 camera id
     ch_cam = torch.arange(obs.shape[-1], device=dev) == OBS_CAM_ID
-    obs = torch.where(ch_cam & ~row_live[..., None], torch.full((), -1.0, dtype=obs.dtype, device=dev), obs)
+    dead = torch.where(ch_cam, -1.0, 0.0).to(obs.dtype)
+    obs = torch.where(row_live[..., None], obs, dead)
     return tracks.replace(obs=obs, n_obs=n_obs, valid=track_alive)
 
 
