@@ -205,6 +205,14 @@ Phases (each one raises, and the script exits non-zero, on any failure):
               card's name and power limit. The child processes run beside
               (a), (b) and (e), each under a deadline; their output is logged
               when one fails.
+16. hybrid32 — the runner's default batched configuration (vio_bench's
+              vio_f32: float32 filter, float64 island, hybrid terms, the
+              gating kernel) at 512 rows of vio_bench's mc2048 traffic
+              over 2 laps, to step 250, for the two seeds whose rows it
+              lost before its update was repaired (ROADMAP §1): every row
+              finite and within its capacities, and each lost row's final
+              position error within 0.5 m of the float64 path's on the same
+              row.
 
 The last lines are one JSON object with the kernels' numbers, the card's
 name and power limit, and the result line read by the acceptance check.
@@ -293,7 +301,7 @@ P15_TICKS = (3, 9, 64)
 P15_BATCH = 4
 
 PHASES = ("device", "kernels", "parity", "main", "fused", "plain", "xla", "batched",
-          "solvers", "images", "runner", "island", "sources", "train", "scaleout")
+          "solvers", "images", "runner", "island", "sources", "train", "scaleout", "hybrid32")
 BATCH = 32  # sequences of the batched phase and the batched kernel checks
 # ticks of the float64 card-vs-CPU parity runs (phases parity and solvers;
 # 600 until the island phase joined the script, cut to keep it in its time)
@@ -1308,7 +1316,9 @@ def _flat(pre, fr, name):
 def path_kernels(cfg) -> set:
     """The kernels a configuration's frame loop launches: none with
     ``use_pallas=False``, the master switch; no triage kernel under
-    ``triangulation="gn"``."""
+    ``triangulation="gn"``; the gating kernel for the hybrid terms but
+    under the XLA gate and a float64 filter's Newton-Schulz gate (a float32
+    filter takes the exact gate for ``gating_solver="ns"``)."""
     if not cfg.use_pallas:
         return set()
     names = {"verification_scores"}
@@ -1318,7 +1328,8 @@ def path_kernels(cfg) -> set:
         names.add("triage_refresh_fused")
     if cfg.update_kernel == "fused":
         names.add("update_terms_fused")
-    elif cfg.update_kernel == "hybrid" and cfg.gating_solver not in ("xla", "ns"):
+    elif cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla" and (
+            cfg.gating_solver != "ns" or cfg.dtype == "float32"):
         names.add("batched_gating_gamma")
     return names
 
@@ -3863,6 +3874,85 @@ def phase_scaleout(torch, pkg, K):
         f"(a), (b) and (e); the phase took {time.perf_counter() - start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the float32 hybrid batched path on the rows it lost
+# ---------------------------------------------------------------------------
+
+# seeds of vio_bench's mc2048 traffic at 512 rows over 2 laps, and the rows
+# of each that the float32 hybrid batched path lost before the update summed
+# its information from the projected rows and the float32 gate became the
+# exact one (ROADMAP §1): two rows over
+# u_max and non-finite, one 15.6 m off
+HYBRID32_ROWS = 512
+HYBRID32_STEPS = 250
+HYBRID32_CASES = {6347484808: (260, 499), 6347571917: (44,)}
+HYBRID32_MARGIN = 0.5  # m over the float64 path's final error on the same row
+
+
+def phase_hybrid32(torch, pkg):
+    """The runner's default batched configuration (vio_bench's vio_f32: a
+    float32 filter, the float64 island, the hybrid terms and, for its
+    Newton-Schulz gate, the gating kernel) through batched_frame_step, each seed
+    at HYBRID32_ROWS rows to step HYBRID32_STEPS: no row over a capacity,
+    none non-finite, and each lost row's final position error within
+    HYBRID32_MARGIN of the float64 path's on the same row (the seed's lost
+    rows in a batch of their own)."""
+    from vio_bench.compare import flatten
+    from vio_bench.traffic.generator import load_traffic, make_traffic
+
+    filt = json.loads((REPO / "vio_bench" / "configs" / "vio_f32.json").read_text())["filter"]
+    traffic = dict(load_traffic("mc2048"), laps=2)
+    cfgs = {"float32": pkg.reference_experiment_config(**filt),
+            "float64": pkg.reference_experiment_config(**dict(filt, dtype="float64"))}
+
+    def drive(cfg, R_init, prefix, frames, poses_t):
+        dt = cfg.jdtype
+        cast = {k: v.to(dt) if v.is_floating_point() else v for k, v in prefix.items()}
+        cd = pkg.batched_dispatch(cfg)
+        states = pkg.batched_initial_state(cfg, R_init.shape[0], R_init=R_init.to(dt),
+                                           device=DEVICE)
+        states = torch.func.vmap(lambda s, q: pkg.propagate_prefix(cd, s, q)[0])(states, cast)
+        for j in range(HYBRID32_STEPS):
+            frame = {k: (v[:, j].to(dt) if v.is_floating_point() else v[:, j])
+                     for k, v in frames.items()}
+            states, _ = pkg.batched_frame_step(cfg, states, frame, dispatch_auto=True,
+                                               assume_camera=True, device=DEVICE)
+        flat = flatten(states)
+        B = R_init.shape[0]
+        finite = torch.ones(B, dtype=torch.bool, device=states.P.device)
+        for v in flat.values():
+            if v.is_floating_point():
+                finite &= torch.isfinite(v.reshape(B, -1)).all(1)
+        over = flat["diag.n_track_overflow"] + flat["diag.n_update_overflow"]
+        tick = flat["imu.step_id"] - 1
+        err = torch.linalg.vector_norm(flat["imu.p_WI"].double() - poses_t[tick], dim=-1)
+        return finite.cpu().numpy(), over.cpu().numpy(), err.cpu().numpy()
+
+    for seed, lost in HYBRID32_CASES.items():
+        t0 = time.perf_counter()
+        tr = make_traffic(traffic, HYBRID32_ROWS, None, seed, torch.float64, filt["k_max"],
+                          filt["desc_dim"], DEVICE)
+        finite, over, err = drive(cfgs["float32"], tr.R_init, tr.prefix, tr.frames, tr.poses_t)
+        check(finite.all(), f"hybrid32: seed {seed}: rows {np.nonzero(~finite)[0].tolist()} "
+                            f"not finite at step {HYBRID32_STEPS}")
+        check(not over.any(), f"hybrid32: seed {seed}: rows {np.nonzero(over)[0].tolist()} "
+                              f"over a capacity")
+        rows = list(lost)
+        pick = torch.tensor(rows, device=DEVICE)
+        _, over64, err64 = drive(cfgs["float64"], tr.R_init[pick], {k: v[pick] for k, v in
+                                 tr.prefix.items()}, {k: v[pick] for k, v in tr.frames.items()},
+                                 tr.poses_t)
+        check(not over64.any(), f"hybrid32: seed {seed}: the float64 rows {rows} overflow")
+        for r, e64 in zip(rows, err64):
+            check(err[r] <= e64 + HYBRID32_MARGIN,
+                  f"hybrid32: seed {seed} row {r}: final error {err[r]:.4f} m, float64 "
+                  f"{e64:.4f} m")
+        log(f"hybrid32: seed {seed}, {HYBRID32_ROWS} rows to step {HYBRID32_STEPS}: all "
+            f"finite, no overflow, final errors median {np.median(err):.4f} m, max "
+            f"{err.max():.4f} m; lost rows {rows}: {np.round(err[rows], 4).tolist()} m "
+            f"against float64 {np.round(err64, 4).tolist()} m; {time.perf_counter() - t0:.1f} s")
+
+
 def profile_window(torch, run, n_frames: int, label: str, unit: str = "frame"):
     """Device busy share and the largest device-time items over one run of
     ``n_frames`` camera frames, or other ``unit``s (torch.profiler, device
@@ -4028,6 +4118,9 @@ def main(argv=None) -> int:
     if "scaleout" in phases:
         phase("scaleout")
         phase_scaleout(torch, pkg, K)
+    if "hybrid32" in phases:
+        phase("hybrid32")
+        phase_hybrid32(torch, pkg)
     log(f"== done (at {time.perf_counter() - start:.1f} s)")
 
     if kernel_rows is not None:

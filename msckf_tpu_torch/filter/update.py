@@ -16,9 +16,9 @@ terms with the gating kernel (``update_kernel="hybrid"``,
 (``update_kernel="fused"``, which ignores ``gating_solver`` as in the JAX
 package), or the hybrid terms with the batched-Cholesky gate
 (``update_kernel="xla"``, ``gating_solver="xla"`` or ``use_pallas=False``)
-or with the Jacobi-scaled Newton-Schulz gate (``gating_solver="ns"``; S
-built in float32 with TF32 off, where the JAX package builds it at the
-TPU's bf16-input matmul precision); and the LU, Newton-Schulz
+or, in a float64 filter, with the Jacobi-scaled Newton-Schulz gate
+(``gating_solver="ns"``; a float32 filter takes the exact gate there,
+below); and the LU, Newton-Schulz
 (``gain_solver="ns"``) or Cholesky (``gain_solver="chol"``) gain solve with
 a float64 or plain correction chain, the batched float32 chain through
 ``ops/solve.py::gain_solve``, or the double-word correction island of a
@@ -32,6 +32,13 @@ Kc in T_wk = sum W^T Kc, so a rejected track with an inf Jacobian gives
 0 * inf = NaN and poisons A. Here Kc is masked with the same ``passed`` mask
 wherever it enters A or c. Where the JAX result is finite the two agree
 exactly: a rejected track then contributes exact zeros either way.
+
+Two departures in a float32 filter's hybrid terms (ROADMAP §1): A and c are
+summed from the projected rows in the correction's type, and the gate is
+the exact one (the gating kernel, or the batched Cholesky) where
+``gating_solver="ns"`` asks for the Newton-Schulz gate. A track seen at a
+depth near zero broke both in float32 and lost rows of the batched path.
+Float64 keeps the JAX package's arithmetic.
 """
 
 from __future__ import annotations
@@ -149,6 +156,7 @@ def triage_features(cfg: MSCKFConfig, state: FilterState, subset: torch.Tensor) 
 
 
 class UpdateTerms(NamedTuple):
+    # A and c of a float32 filter come in the correction's type
     A: torch.Tensor  # (D, D) accumulated H^T H of gated features
     c: torch.Tensor  # (D,) accumulated H^T r
     any_pass: torch.Tensor  # () bool
@@ -263,8 +271,13 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     # chi-square gate: gamma = r~^T S^-1 r~ with S = H~ P H~^T + sigma^2 I
     HP = torch.einsum("urd,de->ure", H_t, state.P[15:, 15:])
     S = torch.einsum("ure,use->urs", HP, H_t) + sigma2 * torch.eye(2 * M, dtype=dt_, device=dev)
+    f32 = dt_ == torch.float32
     with tracing.span("gate"):
-        if cfg.gating_solver == "ns":
+        # a float32 filter takes the exact gate for "ns": twelve Newton-Schulz
+        # steps do not converge where Sh's condition passes about 1e3, and a
+        # track seen at a depth near zero makes it 1e6 or more, or S
+        # indefinite in float32, whose gamma then passed the gate
+        if cfg.gating_solver == "ns" and not f32:
             gamma = _ns_gamma(S, r_t, cfg.gating_ns_iters, sigma2)
         elif cfg.use_pallas and cfg.update_kernel == "hybrid" and cfg.gating_solver != "xla":
             gamma = kernels.batched_gating_gamma(S.contiguous(), r_t.contiguous())
@@ -273,22 +286,35 @@ def build_update_terms(cfg: MSCKFConfig, state: FilterState, valid: torch.Tensor
     passed = sel_ok & (gamma <= crit)  # NaN crit (dof 0) and NaN gamma fail
     n_rej = torch.sum(sel_ok & ~passed)
 
-    # masked information accumulation without masked (U, 2M, D) tensors
     pm = passed[:, None, None]
-    Hcam_m = torch.where(pm, Hcam, zero)
-    A_bd = torch.einsum("urd,ure->de", Hcam_m, Hcam_m)  # (6N, 6N)
-    Wm = torch.where(pm, Wc, zero)
-    Gm = torch.where(pm, HtH, zero)
-    Kcm = torch.where(pm, Kc, zero)  # the repair: Kc masked like W
-    T_wk = torch.einsum("uid,uie->de", Wm, Kcm)
-    GK = torch.einsum("uij,ujd->uid", Gm, Kcm)
-    T_kgk = torch.einsum("uid,uie->de", Kcm, GK)
-    A_cam = A_bd - T_wk - T_wk.T + T_kgk
-
     r_m = torch.where(passed[:, None], r_t, zero)
-    Fr = torch.einsum("uri,ur->ui", Hf_stack, r_t)
-    Frm = torch.where(passed[:, None], Fr, zero)
-    c_cam = torch.einsum("urd,ur->d", Hcam_m, r_m) - torch.einsum("uid,ui->d", Kcm, Frm)
+    if f32:
+        # a float32 filter sums A = sum H~^T H~ and c = sum H~^T r~ from the
+        # projected rows, as the fused kernel does, in the correction's type:
+        # the difference form below cancels terms up to 10x A's size, and a
+        # track seen at a depth near zero (Jacobian entries 1e3 to 1e8) left
+        # float32 rounding of 1e-1 to 1e5 in A's small eigenvalues, which the
+        # correction needs to about sigma^2 / P. Products of (U 2M, 6N)
+        # views: an einsum copies both operands.
+        ct = correction_type(cfg)
+        H_m = torch.where(pm, H_t, zero).to(ct).reshape(U * 2 * M, 6 * N)
+        A_cam = H_m.mT @ H_m
+        c_cam = H_m.mT @ r_m.to(ct).reshape(U * 2 * M)
+    else:
+        # masked information accumulation without masked (U, 2M, D) tensors
+        Hcam_m = torch.where(pm, Hcam, zero)
+        A_bd = torch.einsum("urd,ure->de", Hcam_m, Hcam_m)  # (6N, 6N)
+        Wm = torch.where(pm, Wc, zero)
+        Gm = torch.where(pm, HtH, zero)
+        Kcm = torch.where(pm, Kc, zero)  # the repair: Kc masked like W
+        T_wk = torch.einsum("uid,uie->de", Wm, Kcm)
+        GK = torch.einsum("uij,ujd->uid", Gm, Kcm)
+        T_kgk = torch.einsum("uid,uie->de", Kcm, GK)
+        A_cam = A_bd - T_wk - T_wk.T + T_kgk
+
+        Fr = torch.einsum("uri,ur->ui", Hf_stack, r_t)
+        Frm = torch.where(passed[:, None], Fr, zero)
+        c_cam = torch.einsum("urd,ur->d", Hcam_m, r_m) - torch.einsum("uid,ui->d", Kcm, Frm)
 
     A = torch.nn.functional.pad(A_cam, (15, 0, 15, 0))
     c = torch.nn.functional.pad(c_cam, (15, 0))
@@ -330,6 +356,12 @@ def _cholesky_gamma(S: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return torch.where(info == 0, gamma, torch.full_like(gamma, float("nan")))
 
 
+def correction_type(cfg: MSCKFConfig) -> torch.dtype:
+    """The type of the correction chain, and of a float32 filter's A and c:
+    float64 for ``correction_dtype="float64"``, else the filter's type."""
+    return torch.float64 if cfg.correction_dtype == "float64" else cfg.jdtype
+
+
 def _correction_terms(cfg: MSCKFConfig, P, A, c):
     """delta = L c and the Joseph-form P update, L = P B^{-1},
     B = sigma^2 I + A P: in float64 when ``correction_dtype="float64"``,
@@ -339,7 +371,7 @@ def _correction_terms(cfg: MSCKFConfig, P, A, c):
     under vmap."""
     dt_ = cfg.jdtype
     D = cfg.err_dim
-    ct = torch.float64 if cfg.correction_dtype == "float64" else dt_
+    ct = correction_type(cfg)
     P = P.to(ct)
     A_ = A.to(ct)
     c_ = c.to(ct)

@@ -50,7 +50,8 @@ def batched_dispatch(cfg: MSCKFConfig) -> MSCKFConfig:
     * ``gating_solver="auto"`` becomes the Newton-Schulz gate, ``"ns"``,
       with 12 iterations, unless the caller set ``gating_ns_iters``: the JAX
       package writes 12 over any value (ROADMAP §3), the port only over the
-      default.
+      default. A float32 filter takes the exact gate there (the gating
+      kernel, ``filter/update.py``; ROADMAP §1).
     * The correction island: the card has float64, so the clause behaves as
       the JAX package's does with x64 on. The float64 LU island stays; a
       float32 filter with ``correction_dtype="compensated"`` gets
